@@ -1,0 +1,175 @@
+"""Packed Bloom filter over device tensors.
+
+Port of ``platanus3_tpu/ops/bloom.py`` for filters of up to 2^31 bits.
+The filter is ``2^log2_bits / 32`` packed 32-bit words held in an
+``int32`` tensor (the ``uint32`` bit patterns): bit ``p`` is bit
+``p & 31`` of word ``p >> 5``.  Membership semantics are the reference's:
+``num_hashes`` double-hash probes, no false negatives, AND over probes
+(``BF::possiblyContains``, ``src/bloomfilter.cpp:76-86``).
+
+``bloom_add`` is the wrapper of the hand-written CUDA kernel
+``bloom_set_bits`` (``csrc/bloom.cu``), which replaces the Pallas kernel
+``platanus3_tpu/ops/bloom_pallas.py::_set_bits_kernel``.  On a CUDA
+tensor it launches the kernel; on a CPU tensor it runs the plain PyTorch
+version, ``bloom_add_plain``, which mirrors the JAX build (probe
+positions -> sort -> dedup -> scatter-add of the bit values).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from platanus3_tpu_torch.ops import hashing
+from platanus3_tpu_torch.ops.kmer import MASK32
+
+__all__ = ["BloomFilter", "make_bloom", "bloom_add", "bloom_add_plain",
+           "bloom_query", "log2_ceil", "words_to_signed"]
+
+# Largest filter the port builds; the JAX package's (hi, lo) two-lane
+# path for 2^32..2^35 bits is ROADMAP.md Queue 1 item 1.
+MAX_LOG2_BITS = 31
+
+
+class BloomFilter(NamedTuple):
+    """bits: ``[2^log2_bits / 32] int32`` packed words; log2_bits and
+    num_hashes are plain ints."""
+
+    bits: torch.Tensor
+    log2_bits: int
+    num_hashes: int
+
+
+def log2_ceil(n: int) -> int:
+    return max(5, int(n - 1).bit_length())
+
+
+def make_bloom(min_bits: int, num_hashes: int, device="cpu") -> BloomFilter:
+    """Empty filter with at least ``min_bits`` bits (a power of two)."""
+    lb = log2_ceil(min_bits)
+    if lb > MAX_LOG2_BITS:
+        raise NotImplementedError(
+            f"filter of 2^{lb} bits: the wide Bloom path (> 2^31 bits) is "
+            f"not ported yet (ROADMAP.md Queue 1 item 1)")
+    return BloomFilter(
+        bits=torch.zeros(((1 << lb) // 32,), dtype=torch.int32,
+                         device=device),
+        log2_bits=lb, num_hashes=num_hashes)
+
+
+def words_to_signed(words: torch.Tensor) -> torch.Tensor:
+    """int64 words holding uint32 values -> the int32 bit patterns."""
+    words = words & MASK32
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def _check_add_args(bf: BloomFilter, kmers: torch.Tensor, k: int,
+                    mask: torch.Tensor | None):
+    if kmers.dtype != torch.int64:
+        raise TypeError(f"k-mer lanes must be int64, got {kmers.dtype}")
+    lanes = (k + 15) // 16
+    if kmers.shape[-1] != lanes:
+        raise ValueError(f"k={k} needs {lanes} lanes, got {kmers.shape[-1]}")
+    if bf.bits.dtype != torch.int32 or bf.bits.dim() != 1 \
+            or bf.bits.shape[0] != (1 << bf.log2_bits) // 32:
+        raise ValueError("filter words must be [2^log2_bits/32] int32")
+    if bf.log2_bits > MAX_LOG2_BITS:
+        raise NotImplementedError(
+            "wide Bloom path (ROADMAP.md Queue 1 item 1)")
+    if bf.bits.device != kmers.device:
+        raise ValueError(f"filter on {bf.bits.device}, k-mers on "
+                         f"{kmers.device}")
+    if mask is not None:
+        if mask.dtype != torch.bool:
+            raise TypeError(f"mask must be bool, got {mask.dtype}")
+        if mask.device != kmers.device:
+            raise ValueError("mask and k-mers on different devices")
+        if mask.shape != kmers.shape[:-1]:
+            raise ValueError(f"mask shape {tuple(mask.shape)} != "
+                             f"{tuple(kmers.shape[:-1])}")
+
+
+def bloom_add_plain(bf: BloomFilter, kmers: torch.Tensor, k: int,
+                    mask: torch.Tensor | None = None) -> BloomFilter:
+    """Plain PyTorch insert: probe positions, sort, dedup, scatter-add.
+
+    After the dedup each (word, bit) pair appears once, so the per-word
+    sum of ``1 << bit`` equals the per-word OR."""
+    _check_add_args(bf, kmers, k, mask)
+    kmers = kmers.reshape(-1, kmers.shape[-1])
+    if mask is not None:
+        kmers = kmers[mask.reshape(-1)]
+    h1, h2 = hashing.double_hash(kmers, k)
+    pos = hashing.probe_positions(h1, h2, bf.num_hashes, bf.log2_bits)
+    pos = torch.sort(pos.reshape(-1)).values
+    keep = torch.ones_like(pos, dtype=torch.bool)
+    keep[1:] = pos[1:] != pos[:-1]
+    pos = pos[keep]
+    delta = torch.zeros(bf.bits.shape, dtype=torch.int64,
+                        device=bf.bits.device)
+    delta.index_add_(0, pos >> 5, torch.ones_like(pos) << (pos & 31))
+    return bf._replace(bits=bf.bits | words_to_signed(delta))
+
+
+def _bloom_add_cuda(bf: BloomFilter, kmers: torch.Tensor, k: int,
+                    mask: torch.Tensor | None) -> BloomFilter:
+    from platanus3_tpu_torch import kernels
+
+    lib = kernels.load_library()
+    kmers = kmers.reshape(-1, kmers.shape[-1])
+    if not kmers.is_contiguous():
+        raise ValueError("k-mer lanes must be contiguous")
+    if mask is not None:
+        mask = mask.reshape(-1)
+        if not mask.is_contiguous():
+            raise ValueError("mask must be contiguous")
+    words = bf.bits.clone()
+    with torch.cuda.device(kmers.device):
+        stream = torch.cuda.current_stream(kmers.device).cuda_stream
+        err = lib.bloom_set_bits(
+            kmers.data_ptr(), None if mask is None else mask.data_ptr(),
+            kmers.shape[0], kmers.shape[1],
+            hashing.hash_init(k, hashing.SEED_H1),
+            hashing.hash_init(k, hashing.SEED_H2),
+            bf.num_hashes, (1 << bf.log2_bits) - 1, words.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"bloom_set_bits launch failed: CUDA error {err}")
+    bloom_add.kernel_launches += 1
+    return bf._replace(bits=words)
+
+
+def bloom_add(bf: BloomFilter, kmers: torch.Tensor, k: int,
+              mask: torch.Tensor | None = None) -> BloomFilter:
+    """Insert a batch of canonical k-mers ``[..., L]`` (``BF::add``).
+
+    ``mask`` (``[...] bool``) drops masked k-mers.  Returns a new filter;
+    the input words are not modified.  A CUDA tensor goes through the
+    ``bloom_set_bits`` kernel, a CPU tensor through ``bloom_add_plain``.
+    """
+    if kmers.device.type == "cpu":
+        return bloom_add_plain(bf, kmers, k, mask)
+    if not kmers.is_cuda:
+        raise ValueError(f"unsupported device {kmers.device}")
+    _check_add_args(bf, kmers, k, mask)
+    return _bloom_add_cuda(bf, kmers, k, mask)
+
+
+bloom_add.kernel_launches = 0  # launches of bloom_set_bits
+
+
+def bloom_query(bf: BloomFilter, kmers: torch.Tensor, k: int) -> torch.Tensor:
+    """Batch membership query -> ``[...] bool``: AND over the
+    ``num_hashes`` probe bits.  One probe at a time, so no
+    ``[num_hashes, N]`` tensor is held."""
+    if bf.log2_bits > MAX_LOG2_BITS:
+        raise NotImplementedError(
+            "wide Bloom path (ROADMAP.md Queue 1 item 1)")
+    h1, h2 = hashing.double_hash(kmers, k)
+    pos_mask = (1 << bf.log2_bits) - 1
+    hit = torch.ones(h1.shape, dtype=torch.bool, device=h1.device)
+    for n in range(bf.num_hashes):
+        pos = (h1 + n * h2) & pos_mask
+        word = bf.bits[pos >> 5].to(torch.int64)
+        hit &= ((word >> (pos & 31)) & 1) == 1
+    return hit

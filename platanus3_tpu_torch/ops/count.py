@@ -1,0 +1,245 @@
+"""Exact k-mer counting via sort + run reduction.
+
+Port of ``platanus3_tpu/ops/count.py`` for k <= 32 (one or two lanes).
+A k-mer's lanes pack into one 64-bit key, ``lane0 << 32 | lane1``, and the
+whole count is one ``torch.sort`` of those keys:
+
+* the sort key is the packed value with its sign bit flipped, so signed
+  int64 order equals the unsigned (lexicographic, ``CompareBit``) order;
+* for 2k <= 62 the top of the key range is unused, so invalid rows take
+  the largest int64 and sort last in the same single sort (the JAX
+  package's ``_has_spare_msb`` fold);
+* for k = 32 all 64 bits are used, so invalid rows are moved last by a
+  second, stable sort on the invalid flag.
+
+Node ids are the ranks of canonical k-mers in this order, exactly as in
+the JAX package, so tables and per-position ids compare one to one.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from platanus3_tpu_torch.ops.kmer import MASK32
+
+__all__ = ["KmerTable", "pack_keys", "unpack_keys", "order_keys",
+           "sort_kmers", "count_kmers", "count_positions_table",
+           "count_solid_with_ids", "lookup_id", "lookup_id_join",
+           "merge_tables"]
+
+_SIGN = -(1 << 63)          # int64 with only the sign bit set
+_I64_MAX = (1 << 63) - 1
+
+
+class KmerTable(NamedTuple):
+    """Sorted unique canonical k-mers with counts.
+
+    keys:   ``[cap, L] int64`` lexicographically sorted; rows >= size are
+            all-ones (0xFFFFFFFF) padding
+    counts: ``[cap] int64`` (0 beyond size)
+    size:   0-dim int64 tensor -- number of valid rows
+    """
+
+    keys: torch.Tensor
+    counts: torch.Tensor
+    size: torch.Tensor
+
+
+def _check_lanes(kmers: torch.Tensor):
+    if kmers.shape[-1] > 2:
+        raise NotImplementedError(
+            f"{kmers.shape[-1]}-lane k-mers (k > 32): multi-word k is not "
+            f"ported yet (ROADMAP.md Queue 1 item 2)")
+
+
+def pack_keys(kmers: torch.Tensor) -> torch.Tensor:
+    """``[..., L]`` lanes (L <= 2) -> ``[...]`` int64 holding the 2k-bit
+    value (wraps to negative when k = 32 and the top bit is set)."""
+    _check_lanes(kmers)
+    if kmers.shape[-1] == 1:
+        return kmers[..., 0].clone()
+    return (kmers[..., 0] << 32) | kmers[..., 1]
+
+
+def unpack_keys(keys: torch.Tensor, lanes: int) -> torch.Tensor:
+    if lanes == 1:
+        return keys[..., None].clone()
+    return torch.stack([(keys >> 32) & MASK32, keys & MASK32], dim=-1)
+
+
+def order_keys(kmers: torch.Tensor) -> torch.Tensor:
+    """Packed keys whose signed int64 order is the lexicographic order."""
+    return pack_keys(kmers) ^ _SIGN
+
+
+def _spare_top(k: int | None) -> bool:
+    """True when no valid order key can equal the int64 maximum, so an
+    invalid row can carry it as its sort key (2k <= 62)."""
+    return k is not None and 2 * k <= 62
+
+
+def sort_kmers(kmers: torch.Tensor, invalid: torch.Tensor,
+               k: int | None = None):
+    """Order ``[N, L]`` keys lexicographically with invalid rows last.
+
+    Returns ``(s_okey [N], s_invalid [N], perm [N])``: the sorted order
+    keys, the sorted invalid flags and the permutation (sorted row i is
+    input row ``perm[i]``).  Rows with equal keys may come in any order;
+    the counting cores read only run aggregates and ``perm``.
+    """
+    okey = order_keys(kmers)
+    if _spare_top(k):
+        okey = torch.where(invalid, _I64_MAX, okey)
+        s_okey, perm = torch.sort(okey)
+    else:
+        s_okey, perm = torch.sort(okey, stable=True)
+        _, p2 = torch.sort(invalid[perm].to(torch.uint8), stable=True)
+        perm = perm[p2]
+        s_okey = s_okey[p2]
+    return s_okey, invalid[perm], perm
+
+
+def _is_first(s_okey: torch.Tensor, s_invalid: torch.Tensor):
+    first = torch.ones_like(s_invalid)
+    first[1:] = ((s_okey[1:] != s_okey[:-1])
+                 | (s_invalid[1:] != s_invalid[:-1]))
+    return first
+
+
+def _run_totals(is_first: torch.Tensor, contrib: torch.Tensor):
+    """Per-row sum of ``contrib`` over the row's run."""
+    seg = torch.cumsum(is_first.to(torch.int64), 0) - 1
+    totals = torch.zeros(contrib.shape, dtype=torch.int64,
+                         device=contrib.device)
+    totals.index_add_(0, seg, contrib.to(torch.int64))
+    return totals[seg]
+
+
+def _compact_table(s_okey, tab_first, run_total, lanes: int,
+                   want_counts: bool = True) -> KmerTable:
+    """Table of the runs flagged by ``tab_first`` (in sorted order), padded
+    to the input row count with all-ones keys and zero counts."""
+    n = s_okey.shape[0]
+    dev = s_okey.device
+    first_keys = s_okey[tab_first] ^ _SIGN
+    nt = first_keys.shape[0]
+    keys = torch.full((n, lanes), MASK32, dtype=torch.int64, device=dev)
+    keys[:nt] = unpack_keys(first_keys, lanes)
+    counts = torch.zeros((n,), dtype=torch.int64, device=dev)
+    if want_counts:
+        counts[:nt] = run_total[tab_first]
+    size = torch.tensor(nt, dtype=torch.int64, device=dev)
+    return KmerTable(keys=keys, counts=counts, size=size)
+
+
+def _scan_count(kmers, valid, contributes, k, include_zero: bool,
+                want_nid: bool, want_table: bool = True,
+                want_counts: bool = True):
+    """Sort + run reduction shared by the counting entry points.
+
+    Returns ``(table | None, per_pos)``: ``per_pos`` is the run total per
+    input row (0 for invalid rows), or with ``want_nid`` the table row of
+    the row's k-mer (-1 when absent).  ``include_zero`` keeps valid runs
+    without any contribution in the table.
+    """
+    l = kmers.shape[1]
+    contributes = contributes & valid
+    s_okey, s_invalid, perm = sort_kmers(kmers, ~valid, k=k)
+    is_first = _is_first(s_okey, s_invalid)
+    s_contrib = torch.where(s_invalid, 0, contributes[perm].to(torch.int64))
+    run_total = _run_totals(is_first, s_contrib)
+
+    in_table = ~s_invalid if include_zero else (run_total > 0) & ~s_invalid
+    tab_first = is_first & in_table
+    if want_nid:
+        # Within an in-table run only the first row is tab_first, so
+        # every row of the run carries the run's table rank.
+        tab_rank = torch.cumsum(tab_first.to(torch.int64), 0) - 1
+        value_sorted = torch.where(in_table, tab_rank, -1)
+    else:
+        value_sorted = torch.where(s_invalid, 0, run_total)
+    per_pos = torch.empty_like(value_sorted)
+    per_pos[perm] = value_sorted
+
+    if not want_table:
+        return None, per_pos
+    return _compact_table(s_okey, tab_first, run_total, l,
+                          want_counts), per_pos
+
+
+def count_kmers(kmers: torch.Tensor, valid: torch.Tensor,
+                k: int | None = None) -> KmerTable:
+    """Count the unique valid k-mers of a flat batch ``[N, L]``; the table
+    capacity is N and ``size`` the unique count."""
+    table, _ = _scan_count(kmers, valid, valid, k, include_zero=True,
+                           want_nid=False)
+    return table
+
+
+def count_positions_table(kmers: torch.Tensor, valid: torch.Tensor,
+                          contributes: torch.Tensor, k: int | None = None,
+                          want_table: bool = True):
+    """Per-position counts AND the contributing-unique table from ONE sort.
+
+    Returns ``(KmerTable | None, per_position_counts [N])``: the table
+    holds the k-mers with at least one contributing position; every valid
+    position (contributing or not) gets its k-mer's count, invalid ones 0.
+    """
+    return _scan_count(kmers, valid, contributes, k, include_zero=False,
+                       want_nid=False, want_table=want_table)
+
+
+def count_solid_with_ids(kmers: torch.Tensor, valid: torch.Tensor,
+                         contributes: torch.Tensor, k: int | None = None,
+                         want_counts: bool = True):
+    """Solid-node table AND per-position node ids from ONE sort.
+
+    Returns ``(KmerTable, per_pos_nid [N])``: the table holds the unique
+    k-mers with at least one contribution, and ``per_pos_nid[i]`` is the
+    table row of position i's k-mer (-1 when absent or invalid)."""
+    return _scan_count(kmers, valid, contributes, k, include_zero=False,
+                       want_nid=True, want_counts=want_counts)
+
+
+def _table_order_keys(table: KmerTable) -> torch.Tensor:
+    """Order keys of the table rows, padding rows set to the int64
+    maximum so the whole column stays sorted."""
+    m = table.keys.shape[0]
+    row = torch.arange(m, device=table.keys.device)
+    return torch.where(row < table.size, order_keys(table.keys), _I64_MAX)
+
+
+def lookup_id(table: KmerTable, queries: torch.Tensor) -> torch.Tensor:
+    """Row index of each ``[Q, L]`` query in the table, or -1 when absent
+    (a binary search over the packed keys)."""
+    tkey = _table_order_keys(table)
+    qkey = order_keys(queries)
+    pos = torch.searchsorted(tkey, qkey)
+    pos_c = pos.clamp(max=tkey.shape[0] - 1)
+    hit = (tkey[pos_c] == qkey) & (pos < table.size)
+    return torch.where(hit, pos_c, -1)
+
+
+def lookup_id_join(table: KmerTable, queries: torch.Tensor,
+                   k: int | None = None) -> torch.Tensor:
+    """Same ids as :func:`lookup_id`.  The JAX package joins by one sort
+    of table and queries (binary-search gathers are slow on a TPU); on a
+    GPU ``searchsorted`` over the packed keys is the direct form."""
+    return lookup_id(table, queries)
+
+
+def merge_tables(a: KmerTable, b: KmerTable) -> KmerTable:
+    """Merge two count tables: the union of their valid keys, sorted, with
+    summed counts.  Capacity is ``cap_a + cap_b``."""
+    ka = a.keys.shape[0]
+    keys = torch.cat([a.keys, b.keys], dim=0)
+    counts = torch.cat([a.counts, b.counts], dim=0)
+    row = torch.arange(keys.shape[0], device=keys.device)
+    invalid = ~((row < a.size) | ((row >= ka) & (row < ka + b.size)))
+    s_okey, s_invalid, perm = sort_kmers(keys, invalid)
+    is_first = _is_first(s_okey, s_invalid)
+    run_total = _run_totals(is_first, torch.where(s_invalid, 0, counts[perm]))
+    return _compact_table(s_okey, is_first & ~s_invalid, run_total,
+                          keys.shape[1])

@@ -1,0 +1,41 @@
+"""Pipeline logging & metrics.
+
+Replaces the reference's ``Logging`` class (``src/Logging.cpp``) which
+opens/closes ``./platanus3.log`` per line under a mutex and is called per
+graph NODE during traversal -- a measured serial bottleneck (SURVEY.md
+§5: ~550 KB of log for a 3 kb genome).  Here: buffered stage-level lines
+plus named COUNTERS (the per-node spam becomes metrics), flushed once per
+stage.  File format stays line-per-event so existing habits work.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+
+class PipelineLog:
+    def __init__(self, path: Optional[str] = "./platanus3.log",
+                 echo: bool = False):
+        self.path = path
+        self.echo = echo
+        self.lines = []
+        self.metrics = {}
+        self._t0 = time.time()
+
+    def write(self, text: str):
+        line = f"[{time.time() - self._t0:8.2f}s] {text}"
+        self.lines.append(line)
+        if self.echo:
+            print(line, flush=True)
+        self.flush()
+
+    def metric(self, name: str, value):
+        self.metrics[name] = value
+        self.write(f"{name} : {value}")
+
+    def flush(self):
+        if self.path and self.lines:
+            with open(self.path, "a") as f:
+                f.write("\n".join(self.lines) + "\n")
+        self.lines = []

@@ -1,0 +1,71 @@
+"""Tests that need a CUDA card: the port's kernels against their plain
+PyTorch versions, and a GPU assembly against the CPU one.
+
+They skip where ``torch.cuda.is_available()`` is false.  This file imports
+neither JAX nor the JAX package, so on a machine with a card and without
+JAX it runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from platanus3_tpu_torch import sim
+from platanus3_tpu_torch.config import AssemblyConfig
+from platanus3_tpu_torch.ops import bloom as TB
+from platanus3_tpu_torch.ops import kmer as TK
+from platanus3_tpu_torch.pipeline import assemble
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def canon_batch(rows, k, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lanes = torch.randint(0, 1 << 32, (rows, TK.num_lanes(k)),
+                          generator=gen, device=device, dtype=torch.int64)
+    lanes[:, 0] &= TK._top_mask(k)
+    dup = torch.randint(0, rows, (2, rows // 3), generator=gen,
+                        device=device)
+    lanes[dup[0]] = lanes[dup[1]]
+    return TK.canonical(lanes, k)[0]
+
+
+@pytest.mark.parametrize("k,log2_bits,hashes",
+                         [(25, 16, 3), (25, 20, 10), (32, 16, 2),
+                          (32, 20, 7), (32, 30, 10), (21, 31, 4)])
+def test_bloom_set_bits_matches_plain(cuda, k, log2_bits, hashes):
+    canon = canon_batch(200_000, k, seed=k + log2_bits, device=cuda)
+    mask = torch.rand(200_000, device=cuda) < 0.9
+    bf = TB.make_bloom(1 << log2_bits, hashes, device=cuda)
+    before = TB.bloom_add.kernel_launches
+    got = TB.bloom_add(bf, canon, k, mask=mask)
+    torch.cuda.synchronize()
+    assert TB.bloom_add.kernel_launches == before + 1
+    want = TB.bloom_add_plain(bf, canon, k, mask=mask)
+    assert torch.equal(got.bits, want.bits)
+    assert torch.equal(bf.bits, torch.zeros_like(bf.bits))  # input intact
+    # no mask, onto a non-empty filter
+    got2 = TB.bloom_add(got, canon[:1000], k)
+    assert torch.equal(got2.bits, TB.bloom_add_plain(want, canon[:1000],
+                                                     k).bits)
+
+
+def test_gpu_assembly_equals_cpu(cuda):
+    genome = sim.random_genome(3000, seed=5)
+    reads = sim.simulate_reads(genome, coverage=25, read_len=400, seed=6,
+                               sub_rate=0.01)
+    for kw in (dict(k=25), dict(k=32, use_exact_membership=False),
+               dict(k=25, use_exact_membership=False, filter_bits=1 << 14,
+                    num_hashes=2)):
+        cfg = AssemblyConfig(chunk_len=512, log_path=None, **kw)
+        gpu = assemble(reads, cfg, write_output=False, device=cuda)
+        cpu = assemble(reads, cfg, write_output=False, device="cpu")
+        assert gpu.gfa_lines == cpu.gfa_lines
