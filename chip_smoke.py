@@ -15,15 +15,29 @@ Phases, each of which ends the run with a nonzero exit on failure:
 4. CPU/GPU parity: a 20 kb genome at 25x in Bloom mode with a filter small
    enough that the false-positive closure runs; the GFA line lists from
    the card and from the CPU (plain versions) must be identical;
-5. main run: BASELINE config 1 -- a generated genome of E. coli K-12
-   MG1655's length and GC (4,641,652 bp, 50.8 %; NCBI NC_000913.3), 20x of
-   10 kb reads with 0.1 % substitutions, through the port's ``cli.main``
-   with ``-k 32 -m 1073741824 --membership bloom``; checks the launch count
-   and that the straights cover >= 0.9 of the genome, >= 0.9 of their
-   bases as exact genome substrings.
+5. the main run's reads: a generated genome of E. coli K-12 MG1655's
+   length and GC (4,641,652 bp, 50.8 %; NCBI NC_000913.3), 20x of 10 kb
+   reads with 0.1 % substitutions (BASELINE config 1), chunked as the main
+   run chunks them;
+6. OA counter: ``ops.count_oa.count_kmers_oa`` (kernel
+   ``oa_count_insert``) on every chunk position of those reads, once for
+   the short k = 21 k-mers and once for the k = 32 ones (about 10^8 rows
+   each); the kernel's table, the plain table and the sort counter's
+   table must be equal, overflow 0, every slot reachable by probing;
+7. blocked Bloom: ``ops.bloom_blocked.build_blocked_bloom`` (kernel
+   ``bloom_blocked_set_bits``) on the main run's node table at 2^30 and
+   2^33 bits, 10 hashes; words bit-equal to the plain build, no false
+   negative, false-positive share on 10^6 random k-mers below 10^-3;
+8. main run: those reads through the port's ``cli.main`` with ``-k 32
+   -m 1073741824 --membership bloom``; checks the launch count and that
+   the straights cover >= 0.9 of the genome, >= 0.9 of their bases as
+   exact genome substrings.
 
-The second-to-last line is the kernels' JSON, the last line
-``{"ok": true, "device": {...}}``.
+Phases 6-8 each drive their path with the kernels' launch counts set to
+0 just before and read just after; launches made to compare a kernel with
+its plain version or to time it are not counted.  The second-to-last line
+is the kernels' JSON (times from CUDA events, bounds from this run's
+shapes), the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -39,8 +53,12 @@ GENOME_LEN = 4_641_652        # E. coli K-12 MG1655, NC_000913.3
 GENOME_GC = 0.508
 MAIN_FILTER_BITS = 1 << 30
 MAIN_HASHES = 10
-KERNEL_SOURCE = "platanus3_tpu_torch/csrc/bloom.cu"
-KERNEL_REPLACES = "platanus3_tpu/ops/bloom_pallas.py:53"
+MAIN_K, SHORT_K, CHUNK_LEN, COV_THRESHOLD = 32, 21, 1024, 2
+BLOCKED_LOG2_BITS = (30, 33)
+FP_PROBES = 1_000_000
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
+BLOOM_SOURCE = "platanus3_tpu_torch/csrc/bloom.cu"
+OA_SOURCE = "platanus3_tpu_torch/csrc/count_oa.cu"
 
 
 def log(msg: str) -> None:
@@ -84,9 +102,27 @@ def random_canon(rows: int, k: int, seed: int, device):
     return kmer.canonical(lanes, k)[0]
 
 
+def bytes_bound_ms(nbytes: int) -> float:
+    """Least time to move ``nbytes`` through device memory, in ms."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 bound, library_ms=None):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": library_ms}
+
+
 def kernel_vs_plain(rows, valid_rows, k, log2_bits, hashes, seed, reps):
     """Kernel and plain build on the same inputs: (max_abs_err, ms,
-    plain_ms)."""
+    plain_ms, bound_ms).  The bound reads the lanes, the mask and the old
+    words once and writes the words once."""
     import torch
     from platanus3_tpu_torch.ops import bloom
     dev = torch.device("cuda")
@@ -107,7 +143,8 @@ def kernel_vs_plain(rows, valid_rows, k, log2_bits, hashes, seed, reps):
                       reps)
     plain_ms = cuda_time_ms(
         lambda: bloom.bloom_add_plain(empty, canon, k, mask=mask), reps)
-    return err, ms, plain_ms
+    bound = bytes_bound_ms(nbytes(canon, mask, empty.bits, got.bits))
+    return err, ms, plain_ms, bound
 
 
 def parity_run():
@@ -143,26 +180,174 @@ def n50(lengths):
     return 0
 
 
-def main_run(workdir: Path, genome_len: int = GENOME_LEN,
-             device: str = "cuda"):
+def main_reads(genome_len: int = GENOME_LEN, device: str = "cuda"):
+    """The main run's genome and reads, and the reads chunked on the card
+    as the main run chunks them: ``(genome, reads, chunk arrays)``."""
+    import torch
+    from platanus3_tpu_torch import sim
+    from platanus3_tpu_torch.io import reads as reads_mod
+    t0 = time.time()
+    genome = sim.realistic_genome(genome_len, seed=1, gc=GENOME_GC)
+    reads = sim.simulate_reads(genome, coverage=20, read_len=10_000, seed=2,
+                               sub_rate=0.001)
+    batch = reads_mod.reads_from_strings(reads, MAIN_K, CHUNK_LEN)
+    arrays = {f: torch.from_numpy(getattr(batch, f).astype("int64"))
+              .to(device) for f in ("packed", "valid_len", "read_id",
+                                    "start", "read_len")}
+    arrays["stride"] = batch.stride
+    arrays["num_reads"] = batch.num_reads
+    log(f"reads: {len(reads)} reads, {sum(map(len, reads))} bases, "
+        f"{batch.num_chunks} chunks, generated and chunked in "
+        f"{time.time() - t0:.1f} s (host)")
+    return genome, reads, arrays
+
+
+def oa_phase(arrays):
+    """The OA counter on every chunk position of the main run's reads, for
+    the short k-mers and the k = 32 ones.  Returns (launches, max_abs_err,
+    per-set measurements)."""
+    import torch
+    from platanus3_tpu_torch.ops import count as count_mod
+    from platanus3_tpu_torch.ops import count_oa, kmer, solid
+    bases = kmer.unpack_bases(arrays["packed"])
+    launches, err, sets = 0, 0, {}
+    for kk in (SHORT_K, MAIN_K):
+        canon, _, owned = solid.short_kmer_positions(
+            bases, arrays["valid_len"], arrays["start"], arrays["read_len"],
+            arrays["stride"], kk, MAIN_K)
+        canon = canon.reshape(-1, canon.shape[-1])
+        contrib = owned.reshape(-1)     # owned & valid
+        del owned
+        count_oa.count_kmers_oa.kernel_launches = 0
+        table = count_oa.count_kmers_oa(canon, contrib, kk)
+        torch.cuda.synchronize()
+        launches += count_oa.count_kmers_oa.kernel_launches
+
+        plain = count_oa.count_kmers_oa_plain(canon, contrib, kk)
+        if int(table.overflow) or int(plain.overflow):
+            raise AssertionError(f"OA k={kk}: overflow kernel "
+                                 f"{int(table.overflow)} plain "
+                                 f"{int(plain.overflow)}")
+        bad = count_oa.probe_violations(table, kk)
+        if bad:
+            raise AssertionError(f"OA k={kk}: {bad} kernel slots not "
+                                 f"reachable by probing")
+        got, want = count_oa.oa_to_sorted(table), count_oa.oa_to_sorted(plain)
+        for a, b in zip(got, want):
+            err = max(err, int((a - b).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"OA k={kk}: kernel and plain tables "
+                                     f"differ")
+        ref = count_mod.count_kmers(canon, contrib, k=kk)
+        n = int(ref.size)
+        if int(got.size) != n or not torch.equal(got.keys[:n], ref.keys[:n]) \
+                or not torch.equal(got.counts[:n], ref.counts[:n]):
+            raise AssertionError(f"OA k={kk}: table differs from the sort "
+                                 f"counter's")
+        del got, want, ref, plain
+        okeys = count_mod.order_keys(canon)[contrib]
+        m = {"rows": canon.shape[0], "contributing": int(contrib.sum()),
+             "unique": n, "slots": table.counts.shape[0],
+             "bound_ms": bytes_bound_ms(nbytes(canon, contrib, table.keys,
+                                               table.counts, table.overflow))}
+        del table
+        m["ms"] = cuda_time_ms(
+            lambda: count_oa.count_kmers_oa(canon, contrib, kk), 5)
+        m["fill_ms"] = cuda_time_ms(lambda: count_oa.empty_table(
+            canon.shape[0], canon.shape[1], canon.device), 5)
+        m["plain_ms"] = cuda_time_ms(
+            lambda: count_oa.count_kmers_oa_plain(canon, contrib, kk), 3)
+        m["unique_ms"] = cuda_time_ms(
+            lambda: torch.unique(okeys, return_counts=True), 5)
+        m["sort_counter_ms"] = cuda_time_ms(
+            lambda: count_mod.count_kmers(canon, contrib, k=kk), 5)
+        del okeys, canon, contrib
+        torch.cuda.empty_cache()
+        log(f"oa k={kk}: {m['rows']} rows, {m['contributing']} "
+            f"contributing, {m['unique']} unique in {m['slots']} slots; "
+            f"kernel = plain = sort counter, overflow 0, probe chains "
+            f"intact; kernel {m['ms']:.4f} ms (of which allocating and "
+            f"filling the table {m['fill_ms']:.4f} ms), plain "
+            f"{m['plain_ms']:.4f} "
+            f"ms, torch.unique {m['unique_ms']:.4f} ms, sort counter "
+            f"count_kmers {m['sort_counter_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms")
+        sets[kk] = m
+    return launches, err, sets
+
+
+def blocked_phase(arrays):
+    """The blocked Bloom build of the main run's node table (stage 1 of
+    the main run, padded to the graph capacity as the main run's filter
+    input).  Returns (launches, max_abs_err, per-size measurements)."""
+    import torch
+    from platanus3_tpu_torch.ops import bloom_blocked
+    from platanus3_tpu_torch.pipeline import (_graph_cap, _pad_table_keys,
+                                              _stage1)
+    table, _, _, _ = _stage1(
+        arrays["packed"], arrays["valid_len"], arrays["read_id"],
+        arrays["start"], arrays["read_len"], COV_THRESHOLD, k=MAIN_K,
+        short_k=SHORT_K, num_reads=arrays["num_reads"])
+    size = int(table.size)
+    nodes = _pad_table_keys(table.keys, size, _graph_cap(size)).contiguous()
+    del table
+    mask = torch.arange(nodes.shape[0], device=nodes.device) < size
+    probes = random_canon(FP_PROBES, MAIN_K, seed=3, device=nodes.device)
+    launches, err, sizes = 0, 0, {}
+    for lb in BLOCKED_LOG2_BITS:
+        bloom_blocked.build_blocked_bloom.kernel_launches = 0
+        words, ovf = bloom_blocked.build_blocked_bloom(
+            nodes, MAIN_K, mask, lb, MAIN_HASHES, return_overflow=True)
+        torch.cuda.synchronize()
+        launches += bloom_blocked.build_blocked_bloom.kernel_launches
+        plain = bloom_blocked.build_blocked_bloom_plain(
+            nodes, MAIN_K, mask, lb, MAIN_HASHES)
+        err = max(err, int((words.long() - plain.long()).abs().max()))
+        if not torch.equal(words, plain) or int(ovf) != 0:
+            raise AssertionError(f"blocked 2^{lb}: kernel words differ from "
+                                 f"the plain build")
+        del plain
+        if not bool(bloom_blocked.query_blocked(
+                words, nodes[:size], MAIN_K, lb, MAIN_HASHES).all()):
+            raise AssertionError(f"blocked 2^{lb}: a node is missing")
+        fp = float(bloom_blocked.query_blocked(
+            words, probes, MAIN_K, lb, MAIN_HASHES).double().mean())
+        if fp >= 1e-3:
+            raise AssertionError(f"blocked 2^{lb}: false-positive share "
+                                 f"{fp} >= 1e-3")
+        m = {"nodes": size, "rows": nodes.shape[0], "fp_share": fp,
+             "bound_ms": bytes_bound_ms(nbytes(nodes, mask, words))}
+        del words
+        m["ms"] = cuda_time_ms(lambda: bloom_blocked.build_blocked_bloom(
+            nodes, MAIN_K, mask, lb, MAIN_HASHES), 10)
+        m["plain_ms"] = cuda_time_ms(
+            lambda: bloom_blocked.build_blocked_bloom_plain(
+                nodes, MAIN_K, mask, lb, MAIN_HASHES), 5)
+        torch.cuda.empty_cache()
+        log(f"blocked 2^{lb} bits, {MAIN_HASHES} hashes: {m['rows']} rows, "
+            f"{size} nodes; words bit-equal, no false negative, "
+            f"false-positive share {fp} on {FP_PROBES} random k-mers; "
+            f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms")
+        sizes[lb] = m
+    return launches, err, sizes
+
+
+def main_run(workdir: Path, genome: str, reads, device: str = "cuda"):
     import torch
     from platanus3_tpu_torch import cli, sim
     from platanus3_tpu_torch.ops import bloom
+
+    genome_len = len(genome)
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
 
-    t0 = time.time()
-    genome = sim.realistic_genome(genome_len, seed=1, gc=GENOME_GC)
-    reads = sim.simulate_reads(genome, coverage=20, read_len=10_000, seed=2,
-                               sub_rate=0.001)
     fasta = workdir / "reads.fasta"
     with open(fasta, "w") as f:
         for i, r in enumerate(reads):
             f.write(f">r{i}\n{r}\n")
-    log(f"main: {len(reads)} reads, {sum(map(len, reads))} bases "
-        f"generated in {time.time() - t0:.1f} s (host)")
 
     gfa, run_log = workdir / "out.gfa", workdir / "run.log"
     bloom.bloom_add.kernel_launches = 0
@@ -243,7 +428,8 @@ def main() -> int:
                           reps=10)
     log(f"kernel main shape ({rows} rows, {GENOME_LEN} masked in, k=32, "
         f"2^30 bits, {MAIN_HASHES} hashes): max_abs_err {big[0]}, "
-        f"kernel {big[1]:.4f} ms, plain {big[2]:.4f} ms")
+        f"kernel {big[1]:.4f} ms, plain {big[2]:.4f} ms, bound "
+        f"{big[3]:.4f} ms")
 
     t = time.time()
     par = parity_run()
@@ -252,14 +438,32 @@ def main() -> int:
         f"{par.stats['closure_rounds']} closure rounds) in "
         f"{time.time() - t:.1f} s")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        launches = main_run(Path(tmp))
+    genome, reads, arrays = main_reads()
+    oa_launches, oa_err, oa = oa_phase(arrays)
+    bb_launches, bb_err, bb = blocked_phase(arrays)
+    del arrays
+    torch.cuda.empty_cache()
+    if oa_launches < 1 or bb_launches < 1:
+        raise AssertionError(f"a path never launched its kernel: "
+                             f"oa_count_insert {oa_launches}, "
+                             f"bloom_blocked_set_bits {bb_launches}")
 
-    log(json.dumps({"kernels": [{
-        "name": "bloom_set_bits", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(small[0], big[0]), "ms": big[1],
-        "plain_ms": big[2]}]}))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = main_run(Path(tmp), genome, reads)
+
+    short, blocked = oa[SHORT_K], bb[BLOCKED_LOG2_BITS[0]]
+    log(json.dumps({"kernels": [
+        kernel_entry("bloom_set_bits", BLOOM_SOURCE,
+                     "platanus3_tpu/ops/bloom_pallas.py:53", launches,
+                     max(small[0], big[0]), big[1], big[2], big[3]),
+        kernel_entry("oa_count_insert", OA_SOURCE,
+                     "platanus3_tpu/ops/count_pallas.py:97", oa_launches,
+                     oa_err, short["ms"], short["plain_ms"],
+                     short["bound_ms"], short["unique_ms"]),
+        kernel_entry("bloom_blocked_set_bits", BLOOM_SOURCE,
+                     "platanus3_tpu/ops/bloom_pallas.py:189", bb_launches,
+                     bb_err, blocked["ms"], blocked["plain_ms"],
+                     blocked["bound_ms"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,10 @@
 Same assembler, same stage boundaries and the same array layouts as the
 JAX package (``platanus3_tpu``), which stays the reference: every module
 here keeps its counterpart's name and public function names.  Tensors
-live on an explicit device; on a CUDA device the Bloom build runs the
-hand-written Hopper kernel in ``csrc/bloom.cu``.
+live on an explicit device (``assemble`` defaults to the card); on a CUDA
+device each of the JAX package's Pallas kernels is a hand-written Hopper
+kernel in ``csrc/``: the packed and the blocked Bloom builds
+(``bloom.cu``) and the open-addressing k-mer counter (``count_oa.cu``).
 
 Conventions shared by every module:
 
@@ -16,8 +18,9 @@ Conventions shared by every module:
 * Bloom filter words are ``int32`` tensors holding the ``uint32`` word
   bit patterns (bit ``p`` is bit ``p & 31`` of word ``p >> 5``).
 
-The slice ported so far is single-shot ``assemble`` for k <= 32, in
-exact or Bloom membership mode.  Everything else raises
+The slices ported so far are single-shot ``assemble`` for k <= 32, in
+exact or Bloom membership mode, and the entry points of the other two
+kernels (``ops/count_oa``, ``ops/bloom_blocked``).  Everything else raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 

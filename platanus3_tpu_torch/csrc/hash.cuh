@@ -1,0 +1,54 @@
+// The k-mer double hash shared by every kernel of the port.
+//
+// Murmur3-32-style mixing over the uint32 lanes of one k-mer row, bit-equal
+// to platanus3_tpu_torch/ops/hashing.py (and so to the JAX package's
+// ops/hashing.py): `init` is hashing.hash_init(k, seed), and h2 is forced
+// odd so the double-hash probe sequence has full period in a power-of-two
+// filter.  Lanes arrive as int64 holding uint32 values.
+
+#pragma once
+
+#include <cstdint>
+
+namespace p3 {
+
+constexpr uint32_t kC1 = 0xCC9E2D51u;
+constexpr uint32_t kC2 = 0x1B873593u;
+constexpr uint32_t kMix1 = 0x85EBCA6Bu;
+constexpr uint32_t kMix2 = 0xC2B2AE35u;
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= kMix1;
+  h ^= h >> 13;
+  h *= kMix2;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t hash_row(const int64_t* row, int lanes,
+                                             uint32_t init) {
+  uint32_t h = init;
+  for (int j = 0; j < lanes; ++j) {
+    uint32_t kx = static_cast<uint32_t>(row[j]) * kC1;
+    kx = rotl32(kx, 15) * kC2;
+    h ^= kx;
+    h = rotl32(h, 13) * 5u + 0xE6546B64u;
+  }
+  return fmix32(h ^ static_cast<uint32_t>(4 * lanes));
+}
+
+// hashing.double_hash: (h1, h2) with h2 odd.
+__device__ __forceinline__ void double_hash_row(const int64_t* row, int lanes,
+                                                uint32_t init1,
+                                                uint32_t init2, uint32_t* h1,
+                                                uint32_t* h2) {
+  *h1 = hash_row(row, lanes, init1);
+  *h2 = hash_row(row, lanes, init2) | 1u;
+}
+
+}  // namespace p3

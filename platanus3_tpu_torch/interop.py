@@ -18,9 +18,10 @@ from platanus3_tpu_torch.graph.build import DBG
 from platanus3_tpu_torch.io.reads import ReadBatch
 from platanus3_tpu_torch.ops.bloom import BloomFilter
 from platanus3_tpu_torch.ops.count import KmerTable
+from platanus3_tpu_torch.ops.count_oa import OAHashTable
 
 __all__ = ["tensor_from_numpy", "from_numpy_read_batch", "from_numpy_table",
-           "from_numpy_bloom", "from_numpy_dbg"]
+           "from_numpy_bloom", "from_numpy_oa_table", "from_numpy_dbg"]
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -47,6 +48,17 @@ def from_numpy_bloom(bits, log2_bits: int, num_hashes: int,
     words = np.asarray(bits).astype(np.uint32)
     return BloomFilter(torch.from_numpy(words.view(np.int32)).to(device),
                        log2_bits, num_hashes)
+
+
+def from_numpy_oa_table(table, device="cpu") -> OAHashTable:
+    """A JAX ``OAHashTable`` -> the port's: int64 lanes, int32 counts and
+    a 0-dim int64 overflow.  Blocked Bloom words convert with
+    ``from_numpy_bloom``."""
+    return OAHashTable(
+        keys=tensor_from_numpy(table.keys, device),
+        counts=torch.from_numpy(np.asarray(table.counts).astype(np.int32))
+        .to(device),
+        overflow=tensor_from_numpy(table.overflow, device))
 
 
 def from_numpy_dbg(dbg, device="cpu") -> DBG:

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The ``.cu`` sources in ``csrc/`` are compiled at first use with ``nvcc``
-into one shared library with a plain C interface, which is loaded with
-``ctypes`` (no PyTorch headers, so the build takes seconds).  The library
-goes to ``build/kernels/`` beside the package, named by a digest of the
-sources, so an edited source is rebuilt and never served stale.
+Each ``.cu`` source in ``csrc/`` is compiled at first use by its own
+``nvcc``, all started together, and the objects are linked into one
+shared library with a plain C interface, which is loaded with ``ctypes``
+(no PyTorch headers, so the build takes seconds).  The library goes to
+``build/kernels/`` beside the package, named by a digest of every source
+and header in ``csrc/``, so an edited file is rebuilt and never served
+stale.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU machines have no ``nvcc``.
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 __all__ = ["load_library", "library_path", "NVCC_FLAGS"]
@@ -26,18 +29,25 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 
 
 def _sources():
+    """The ``.cu`` files, each compiled on its own."""
     return sorted(_CSRC.glob("*.cu"))
+
+
+def _digested():
+    """Every file a build reads: the sources and the headers they
+    include."""
+    return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _digested():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD / f"libp3kernels_{h.hexdigest()[:16]}.so"
@@ -55,16 +65,31 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _build(out: Path) -> None:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+def _check(cmd, proc, out: str, err: str) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+                           f"{' '.join(cmd)}\n{out}{err}")
+
+
+def _build(out: Path) -> None:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs, jobs = [], []
+        for src in _sources():
+            obj = Path(tmpdir) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(str(obj))
+        for cmd, proc in jobs:
+            _check(cmd, proc, *proc.communicate())
+        tmp = Path(tmpdir) / out.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check(cmd, proc, proc.stdout, proc.stderr)
+        os.replace(tmp, out)
 
 
 def load_library():
@@ -77,9 +102,13 @@ def load_library():
     if not path.exists():
         _build(path)
     lib = ctypes.CDLL(str(path))
-    vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.bloom_set_bits.argtypes = [vp, vp, ctypes.c_longlong, i, u, u, i, u,
-                                   vp, vp]
+    vp, i, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                    ctypes.c_longlong)
+    lib.bloom_set_bits.argtypes = [vp, vp, ll, i, u, u, i, u, vp, vp]
     lib.bloom_set_bits.restype = i
+    lib.bloom_blocked_set_bits.argtypes = [vp, vp, ll, i, u, u, i, i, vp, vp]
+    lib.bloom_blocked_set_bits.restype = i
+    lib.oa_count_insert.argtypes = [vp, vp, ll, i, u, i, vp, vp, vp, vp, vp]
+    lib.oa_count_insert.restype = i
     _lib = lib
     return lib

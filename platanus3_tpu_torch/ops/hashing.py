@@ -7,8 +7,8 @@ to 32 bits (the low 32 bits of a wrapped int64 product are exact).
 Bloom filter words, and through false positives the Bloom-mode graph,
 depend on every bit of these values.
 
-The CUDA kernel in ``csrc/bloom.cu`` computes the same hash in native
-``uint32`` arithmetic; ``hash_init`` gives it the per-seed start value.
+The CUDA kernels compute the same hash in native ``uint32`` arithmetic
+(``csrc/hash.cuh``); ``hash_init`` gives them the per-seed start value.
 """
 
 from __future__ import annotations

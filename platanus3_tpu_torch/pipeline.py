@@ -202,8 +202,10 @@ def _emit_output(dbg, cov, reach_jun, reach_uni, chars, k):
 
 def assemble(source, config: AssemblyConfig,
              log: Optional[PipelineLog] = None, write_output: bool = True,
-             mesh=None, extra_solid=None, device="cpu") -> AssemblyResult:
-    """Assemble reads -> GFA on ``device`` (``"cuda"`` or ``"cpu"``).
+             mesh=None, extra_solid=None, device="cuda") -> AssemblyResult:
+    """Assemble reads -> GFA on ``device``: the card by default, ``"cpu"``
+    to run the kernels' plain PyTorch versions.  With no card, the
+    default raises rather than falling back to the CPU.
 
     ``source``: path to .fasta/.fastq, a list of sequence strings, or a
     prepared ``ReadBatch``.  ``mesh`` and ``extra_solid`` exist for
@@ -223,6 +225,9 @@ def assemble(source, config: AssemblyConfig,
     if reason:
         raise NotImplementedError(reason)
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"assemble on {device}: no CUDA device is "
+                           f"available (pass device='cpu' to run on the CPU)")
     log = log or PipelineLog(config.log_path, echo=False)
     t0 = time.time()
     timer = StageTimer(barriers=config.profile_stages, device=device)

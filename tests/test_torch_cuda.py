@@ -14,6 +14,9 @@ import torch
 from platanus3_tpu_torch import sim
 from platanus3_tpu_torch.config import AssemblyConfig
 from platanus3_tpu_torch.ops import bloom as TB
+from platanus3_tpu_torch.ops import bloom_blocked as TBB
+from platanus3_tpu_torch.ops import count as TC
+from platanus3_tpu_torch.ops import count_oa as TOA
 from platanus3_tpu_torch.ops import kmer as TK
 from platanus3_tpu_torch.pipeline import assemble
 
@@ -56,6 +59,49 @@ def test_bloom_set_bits_matches_plain(cuda, k, log2_bits, hashes):
     got2 = TB.bloom_add(got, canon[:1000], k)
     assert torch.equal(got2.bits, TB.bloom_add_plain(want, canon[:1000],
                                                      k).bits)
+
+
+@pytest.mark.parametrize("k", [21, 32])
+def test_oa_count_insert_matches_plain(cuda, k):
+    rows = 200_000
+    canon = canon_batch(rows, k, seed=k, device=cuda)
+    if k == 32:  # the T^16 A^16 palindrome: lane 0 all ones
+        canon[:7] = torch.tensor([0xFFFFFFFF, 0], device=cuda)
+    contrib = torch.rand(rows, device=cuda) < 0.8
+    contrib[:7] = True
+    before = TOA.count_kmers_oa.kernel_launches
+    got = TOA.count_kmers_oa(canon, contrib, k)
+    torch.cuda.synchronize()
+    assert TOA.count_kmers_oa.kernel_launches == before + 1
+    want = TOA.count_kmers_oa_plain(canon, contrib, k)
+    assert got.keys.shape == want.keys.shape == (2, 1 << 19)
+    assert int(got.overflow) == 0 and int(want.overflow) == 0
+    assert TOA.probe_violations(got, k) == 0
+    g, w = TOA.oa_to_sorted(got), TOA.oa_to_sorted(want)
+    for a, b in zip(g, w):
+        assert torch.equal(a, b)
+    ref = TC.count_kmers(canon, contrib, k=k)
+    n = int(ref.size)
+    assert int(g.size) == n
+    assert torch.equal(g.keys[:n], ref.keys[:n])
+    assert torch.equal(g.counts[:n], ref.counts[:n])
+
+
+@pytest.mark.parametrize("log2_bits", [19, 30, 33])
+def test_bloom_blocked_set_bits_matches_plain(cuda, log2_bits):
+    k, hashes = 32, 10
+    canon = canon_batch(200_000, k, seed=log2_bits, device=cuda)
+    mask = torch.rand(200_000, device=cuda) < 0.9
+    before = TBB.build_blocked_bloom.kernel_launches
+    got, ovf = TBB.build_blocked_bloom(canon, k, mask, log2_bits, hashes,
+                                       return_overflow=True)
+    torch.cuda.synchronize()
+    assert TBB.build_blocked_bloom.kernel_launches == before + 1
+    assert int(ovf) == 0
+    want = TBB.build_blocked_bloom_plain(canon, k, mask, log2_bits, hashes)
+    assert torch.equal(got, want)
+    assert bool(TBB.query_blocked(got, canon[mask], k, log2_bits,
+                                  hashes).all())
 
 
 def test_gpu_assembly_equals_cpu(cuda):

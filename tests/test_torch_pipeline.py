@@ -7,8 +7,11 @@ k = 25, Bloom membership at k = 25 with a filter small enough to force
 phantom (false-positive) nodes, and Bloom membership at k = 32.
 """
 
+import inspect
+
 import numpy as np
 import pytest
+import torch
 
 from platanus3_tpu import sim as jsim
 from platanus3_tpu.config import AssemblyConfig as JConfig
@@ -33,7 +36,8 @@ def both(reads, **kw):
     kw.setdefault("chunk_len", 256)
     kw.setdefault("log_path", None)
     j = j_assemble(list(reads), JConfig(**kw), write_output=False)
-    t = t_assemble(list(reads), TConfig(**kw), write_output=False)
+    t = t_assemble(list(reads), TConfig(**kw), write_output=False,
+                   device="cpu")
     return j, t
 
 
@@ -97,7 +101,7 @@ def test_read_batch_from_jax_package():
     batch = interop.from_numpy_read_batch(
         jreads.reads_from_strings(reads, 25, kw["chunk_len"]))
     t = t_assemble(batch, TConfig(k=25, log_path=None, **kw),
-                   write_output=False)
+                   write_output=False, device="cpu")
     j = j_assemble(list(reads), JConfig(k=25, log_path=None, **kw),
                    write_output=False)
     assert t.gfa_lines == j.gfa_lines
@@ -138,7 +142,19 @@ def test_cli_bloom_run_matches_jax(tmp_path):
 def test_unported_options_raise(kw):
     cfg = TConfig(chunk_len=256, log_path=None, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_assemble([rand_genome(80)] * 2, cfg, write_output=False)
+        t_assemble([rand_genome(80)] * 2, cfg, write_output=False,
+                   device="cpu")
+
+
+def test_assemble_defaults_to_the_card(monkeypatch):
+    """The library entry point runs on the card unless asked for the CPU,
+    and without a card it raises instead of falling back."""
+    default = inspect.signature(t_assemble).parameters["device"].default
+    assert default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_assemble([rand_genome(80)] * 2,
+                   TConfig(chunk_len=256, log_path=None), write_output=False)
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--streaming"])
