@@ -9,9 +9,10 @@ Phases, each of which ends the run with a nonzero exit on failure:
    as ``nvidia-smi`` gives them;
 2. build: compiles the CUDA kernels from ``platanus3_tpu_torch/csrc``;
 3. kernel vs plain: ``bloom_set_bits`` (through ``ops.bloom.bloom_add``)
-   against the plain PyTorch build on the card, at a small shape and at
-   the main run's shape; the words must be bit-equal; times from CUDA
-   events;
+   against the plain PyTorch build on the card, at a small shape, at the
+   main run's shape and at filters from 2^5 to 2^31 bits; the words must
+   be bit-equal and the input filter unmodified; times from CUDA events,
+   for the whole call and for each of its passes;
 4. CPU/GPU parity: a 20 kb genome at 25x in Bloom mode with a filter small
    enough that the false-positive closure runs; the GFA line lists from
    the card and from the CPU (plain versions) must be identical;
@@ -24,6 +25,7 @@ Phases, each of which ends the run with a nonzero exit on failure:
    the short k = 21 k-mers and once for the k = 32 ones (about 10^8 rows
    each); the kernel's table, the plain table and the sort counter's
    table must be equal, overflow 0, every slot reachable by probing;
+   prints the largest block's row count and each pass's time;
 7. blocked Bloom: ``ops.bloom_blocked.build_blocked_bloom`` (kernel
    ``bloom_blocked_set_bits``) on the main run's node table at 2^30 and
    2^33 bits, 10 hashes; words bit-equal to the plain build, no false
@@ -55,6 +57,7 @@ MAIN_FILTER_BITS = 1 << 30
 MAIN_HASHES = 10
 MAIN_K, SHORT_K, CHUNK_LEN, COV_THRESHOLD = 32, 21, 1024, 2
 BLOCKED_LOG2_BITS = (30, 33)
+BLOOM_CHECK_LOG2_BITS = (5, 10, 19, 20, 31)
 FP_PROBES = 1_000_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
 BLOOM_SOURCE = "platanus3_tpu_torch/csrc/bloom.cu"
@@ -85,6 +88,32 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def pass_times_ms(make_passes, reps: int) -> dict:
+    """Mean device time of each pass of a wrapper's pass generator
+    (``kernels.run_passes``) over ``reps`` runs, after one warm-up.  A
+    pass's time runs from the end of the one before it, so it includes
+    the wrapper's allocations and scan ahead of its launch."""
+    import torch
+    from platanus3_tpu_torch import kernels
+    kernels.run_passes(make_passes())
+    runs = []
+    for _ in range(reps):
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+        for name in make_passes():
+            marks.append((name, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+        runs.append(marks)
+    torch.cuda.synchronize()
+    return {name: sum(run[i - 1][1].elapsed_time(run[i][1])
+                      for run in runs) / reps
+            for i, (name, _) in enumerate(runs[0]) if i}
+
+
+def fmt_passes(times: dict) -> str:
+    return ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items())
 
 
 def random_canon(rows: int, k: int, seed: int, device):
@@ -121,17 +150,20 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
 
 def kernel_vs_plain(rows, valid_rows, k, log2_bits, hashes, seed, reps):
     """Kernel and plain build on the same inputs: (max_abs_err, ms,
-    plain_ms, bound_ms).  The bound reads the lanes, the mask and the old
-    words once and writes the words once."""
+    plain_ms, bound_ms, per-pass ms).  The bound reads the lanes, the mask
+    and the old words once and writes the words once."""
     import torch
     from platanus3_tpu_torch.ops import bloom
     dev = torch.device("cuda")
     canon = random_canon(rows, k, seed, dev)
     mask = torch.arange(rows, device=dev) < valid_rows
     empty = bloom.make_bloom(1 << log2_bits, hashes, device=dev)
+    old = empty.bits.clone()
     got = bloom.bloom_add(empty, canon, k, mask=mask)
     want = bloom.bloom_add_plain(empty, canon, k, mask=mask)
     torch.cuda.synchronize()
+    if not torch.equal(empty.bits, old):
+        raise AssertionError("bloom_set_bits modified its input filter")
     err = int((got.bits.long() - want.bits.long()).abs().max())
     if not torch.equal(got.bits, want.bits) or err != 0:
         raise AssertionError(f"bloom_set_bits differs from the plain build "
@@ -144,7 +176,40 @@ def kernel_vs_plain(rows, valid_rows, k, log2_bits, hashes, seed, reps):
     plain_ms = cuda_time_ms(
         lambda: bloom.bloom_add_plain(empty, canon, k, mask=mask), reps)
     bound = bytes_bound_ms(nbytes(canon, mask, empty.bits, got.bits))
-    return err, ms, plain_ms, bound
+    passes = pass_times_ms(
+        lambda: bloom.bloom_add_passes(empty, canon, k, mask), reps)
+    return err, ms, plain_ms, bound, passes
+
+
+def bloom_sizes_check(rows=200_000, k=25, hashes=4) -> int:
+    """``bloom_set_bits`` at each size of BLOOM_CHECK_LOG2_BITS, from one
+    word (a region smaller than 64 KB) to 2^31 bits: half the rows onto an
+    empty filter, the other half onto the result.  The words must be
+    bit-equal to the plain build's and the input filters unmodified.
+    Returns max_abs_err."""
+    import torch
+    from platanus3_tpu_torch.ops import bloom
+    dev = torch.device("cuda")
+    half = rows // 2
+    for lb in BLOOM_CHECK_LOG2_BITS:
+        canon = random_canon(rows, k, seed=lb, device=dev)
+        mask = torch.arange(rows, device=dev) % 10 != 3
+        bf = bloom.make_bloom(1 << lb, hashes, device=dev)
+        first = bloom.bloom_add(bf, canon[:half], k, mask=mask[:half])
+        old = first.bits.clone()
+        got = bloom.bloom_add(first, canon[half:], k, mask=mask[half:])
+        want = bloom.bloom_add_plain(
+            bloom.bloom_add_plain(bf, canon[:half], k, mask=mask[:half]),
+            canon[half:], k, mask=mask[half:])
+        torch.cuda.synchronize()
+        if not torch.equal(first.bits, old) or int(bf.bits.ne(0).sum()):
+            raise AssertionError(f"bloom_set_bits modified its input filter "
+                                 f"at 2^{lb} bits")
+        err = int((got.bits.long() - want.bits.long()).abs().max())
+        if err != 0 or not torch.equal(got.bits, want.bits):
+            raise AssertionError(f"bloom_set_bits differs from the plain "
+                                 f"build at 2^{lb} bits: max_abs_err={err}")
+    return 0
 
 
 def parity_run():
@@ -208,7 +273,7 @@ def oa_phase(arrays):
     per-set measurements)."""
     import torch
     from platanus3_tpu_torch.ops import count as count_mod
-    from platanus3_tpu_torch.ops import count_oa, kmer, solid
+    from platanus3_tpu_torch.ops import count_oa, hashing, kmer, solid
     bases = kmer.unpack_bases(arrays["packed"])
     launches, err, sets = 0, 0, {}
     for kk in (SHORT_K, MAIN_K):
@@ -222,6 +287,11 @@ def oa_phase(arrays):
         table = count_oa.count_kmers_oa(canon, contrib, kk)
         torch.cuda.synchronize()
         launches += count_oa.count_kmers_oa.kernel_launches
+        g = count_oa.table_log2_blocks(canon.shape[0])
+        block = hashing.hash_kmers(canon[contrib], kk, hashing.SEED_H1)
+        block = block >> (32 - g) if g else torch.zeros_like(block)
+        largest = int(torch.bincount(block, minlength=1 << g).max())
+        del block
 
         plain = count_oa.count_kmers_oa_plain(canon, contrib, kk)
         if int(table.overflow) or int(plain.overflow):
@@ -248,13 +318,15 @@ def oa_phase(arrays):
         okeys = count_mod.order_keys(canon)[contrib]
         m = {"rows": canon.shape[0], "contributing": int(contrib.sum()),
              "unique": n, "slots": table.counts.shape[0],
+             "largest_bucket": largest,
+             "mean_bucket": int(contrib.sum()) / (1 << g),
              "bound_ms": bytes_bound_ms(nbytes(canon, contrib, table.keys,
                                                table.counts, table.overflow))}
         del table
         m["ms"] = cuda_time_ms(
             lambda: count_oa.count_kmers_oa(canon, contrib, kk), 5)
-        m["fill_ms"] = cuda_time_ms(lambda: count_oa.empty_table(
-            canon.shape[0], canon.shape[1], canon.device), 5)
+        m["passes"] = pass_times_ms(
+            lambda: count_oa.oa_passes(canon, contrib, kk), 5)
         m["plain_ms"] = cuda_time_ms(
             lambda: count_oa.count_kmers_oa_plain(canon, contrib, kk), 3)
         m["unique_ms"] = cuda_time_ms(
@@ -266,12 +338,12 @@ def oa_phase(arrays):
         log(f"oa k={kk}: {m['rows']} rows, {m['contributing']} "
             f"contributing, {m['unique']} unique in {m['slots']} slots; "
             f"kernel = plain = sort counter, overflow 0, probe chains "
-            f"intact; kernel {m['ms']:.4f} ms (of which allocating and "
-            f"filling the table {m['fill_ms']:.4f} ms), plain "
-            f"{m['plain_ms']:.4f} "
-            f"ms, torch.unique {m['unique_ms']:.4f} ms, sort counter "
-            f"count_kmers {m['sort_counter_ms']:.4f} ms, bound "
+            f"intact; largest bucket {largest} rows (mean "
+            f"{m['mean_bucket']:.1f}); kernel {m['ms']:.4f} ms, plain "
+            f"{m['plain_ms']:.4f} ms, torch.unique {m['unique_ms']:.4f} ms, "
+            f"sort counter count_kmers {m['sort_counter_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms")
+        log(f"oa k={kk} passes: {fmt_passes(m['passes'])}")
         sets[kk] = m
     return launches, err, sets
 
@@ -430,6 +502,10 @@ def main() -> int:
         f"2^30 bits, {MAIN_HASHES} hashes): max_abs_err {big[0]}, "
         f"kernel {big[1]:.4f} ms, plain {big[2]:.4f} ms, bound "
         f"{big[3]:.4f} ms")
+    log(f"kernel main shape passes: {fmt_passes(big[4])}")
+    sizes_err = bloom_sizes_check()
+    log(f"kernel at 2^{BLOOM_CHECK_LOG2_BITS} bits (200000 rows, k=25, 4 "
+        f"hashes, twice onto the same filter): bit-equal, inputs intact")
 
     t = time.time()
     par = parity_run()
@@ -455,7 +531,8 @@ def main() -> int:
     log(json.dumps({"kernels": [
         kernel_entry("bloom_set_bits", BLOOM_SOURCE,
                      "platanus3_tpu/ops/bloom_pallas.py:53", launches,
-                     max(small[0], big[0]), big[1], big[2], big[3]),
+                     max(small[0], big[0], sizes_err), big[1], big[2],
+                     big[3]),
         kernel_entry("oa_count_insert", OA_SOURCE,
                      "platanus3_tpu/ops/count_pallas.py:97", oa_launches,
                      oa_err, short["ms"], short["plain_ms"],

@@ -8,27 +8,35 @@
 // empty slot.  Each row adds 1 to its slot's count; a row whose block is
 // full is counted in `overflow`.
 //
-// Design.  One thread per input row, no pre-sort.  The Pallas kernel sorts
-// by hash, run-aggregates and gives each block an SMEM table only because
-// Mosaic has no atomics; here a slot is claimed by one 64-bit atomicCAS on
-// the packed key (lane0 << 32 | lane1) and the row's contribution is an
-// atomicAdd on the slot's int32 count.  Keys are written once and never
-// change, so a plain (L2) read of a slot that shows a key is final; only a
-// slot read as empty needs the CAS.  The CAS winner also writes the key's
-// lanes into the lane-major output, so no second pass is needed.  Slot
-// layout depends on the order of the atomics; the set of (key, count)
-// pairs does not.
+// Design.  Hash-partition the rows by block, then build each block in
+// shared memory.  The partition (partition.cuh: count, scatter, refine)
+// groups the packed keys (lane0 << 32 | lane1) into per-block runs of a
+// scratch array with no global atomic.  Then one CTA per block holds the
+// block's 8192 packed keys and counts (96 KB of dynamic shared memory, two
+// CTAs an SM).  In the block, a slot is claimed by a 64-bit shared
+// atomicCAS and counted by a shared atomicAdd; keys are written once and
+// never change, so a slot read as a key is final and only a slot read as
+// empty needs the CAS.  Equal keys in a warp are merged by
+// __match_any_sync first, so the group's leader probes once and adds the
+// group's size: a highly repeated k-mer (a homopolymer run) does not
+// serialise the warp on one counter.  The CTA then writes its block of
+// lane-major keys and counts once, coalesced, empty slots included, so the
+// outputs need no fill.  The Pallas kernel also sorted by hash and built
+// each block in SMEM, because Mosaic has no atomics; here the reason is
+// that every random access and atomic stays on the SM instead of costing a
+// sector round trip to device memory.  Slot layout depends on the order of
+// the atomics; the set of (key, count) pairs does not.
 //
 // The empty marker is the packed value with all 64 bits set.  At k = 32 it
 // is T^32, whose reverse complement A^32 = 0 is smaller, so it is never a
 // canonical k-mer; at k < 32 it lies outside the 2k-bit range.  A row that
 // packs to it anyway is counted in `overflow`, never dropped silently.
 //
-// Bound.  Each row reads its lanes once (16 B) and touches one random
-// 8-byte slot and one random 4-byte count in tables that, at the main
-// run's 2^28 slots, far exceed the 50 MB L2: two random sector accesses a
-// row.  The shared-memory form (one block's 8192 slots x 12 B = 96 KB fits
-// in one CTA) is later work.
+// Bound.  The least traffic is the lanes and flags read once and the keys
+// and counts written once; at the main run's 2^28 slots the 5.4 GB of
+// outputs dominate it.  The partition adds a second read of the input and,
+// a row, its 8-byte scratch key written twice and read three times; in
+// exchange no access goes to device memory at random.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // (platanus3_tpu_torch/kernels.py), bound with ctypes.
@@ -37,82 +45,229 @@
 #include <cuda_runtime.h>
 
 #include "hash.cuh"
+#include "partition.cuh"
 
 namespace {
 
 constexpr int kSlotsLog2 = 13;
-constexpr uint32_t kSlotMask = (1u << kSlotsLog2) - 1u;
+constexpr int kSlots = 1 << kSlotsLog2;
+constexpr uint32_t kSlotMask = kSlots - 1u;
 constexpr unsigned long long kEmpty = ~0ull;
+constexpr int kInsertThreads = 1024;
+constexpr size_t kBlockSmem =
+    kSlots * (sizeof(unsigned long long) + sizeof(unsigned int));
 
-__global__ void oa_count_insert_kernel(
-    const int64_t* __restrict__ kmers, const uint8_t* __restrict__ contrib,
-    int64_t rows, int lanes, uint32_t init1, int g_log2, int64_t table_size,
-    unsigned long long* __restrict__ slots, int* __restrict__ counts,
-    int64_t* __restrict__ keys, unsigned long long* __restrict__ overflow) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < rows; i += stride) {
-    if (contrib[i] == 0) continue;
-    const int64_t* row = kmers + i * lanes;
-    const uint32_t lane0 = static_cast<uint32_t>(row[0]);
-    const unsigned long long key =
-        lanes == 1 ? lane0
-                   : (static_cast<unsigned long long>(lane0) << 32) |
-                         static_cast<uint32_t>(row[1]);
-    if (key == kEmpty) {
-      atomicAdd(overflow, 1ull);
-      continue;
+__device__ __forceinline__ uint32_t block_of(uint32_t h1, int g_log2) {
+  return g_log2 > 0 ? h1 >> (32 - g_log2) : 0u;
+}
+
+// The partition's rows: each contributing row's packed key, bucketed by
+// its block.  With `overflow` set (the count pass), a row that packs to
+// the empty marker is added to it; it is never partitioned.
+struct OARows {
+  using Item = unsigned long long;
+  const int64_t* kmers;
+  const uint8_t* contrib;
+  int64_t rows;
+  int lanes;
+  uint32_t init1;
+  int g_log2;
+  unsigned long long* overflow;
+
+  __host__ __device__ int per_row() const { return 1; }
+
+  struct Row {
+    unsigned long long key;
+    uint8_t flag;
+  };
+
+  __device__ __forceinline__ Row load(int64_t i) const {
+    return Row{p3::pack_row(kmers + i * lanes, lanes), contrib[i]};
+  }
+
+  template <class F>
+  __device__ __forceinline__ void items(const Row& row, F&& f) const {
+    if (row.flag == 0) return;
+    if (row.key == kEmpty) {
+      if (overflow != nullptr) atomicAdd(overflow, 1ull);
+      return;
     }
-    const uint32_t h1 = p3::hash_row(row, lanes, init1);
-    const int64_t base =
-        g_log2 > 0 ? static_cast<int64_t>(h1 >> (32 - g_log2)) << kSlotsLog2
-                   : 0;
-    const uint32_t home = h1 & kSlotMask;
+    f(block_of(p3::hash_packed(row.key, lanes, init1), g_log2), row.key);
+  }
+};
+
+struct OARefine {
+  int lanes;
+  uint32_t init1;
+  int g_log2;
+  uint32_t sub_mask;
+
+  __device__ __forceinline__ uint32_t sub(unsigned long long key) const {
+    return block_of(p3::hash_packed(key, lanes, init1), g_log2) & sub_mask;
+  }
+  __device__ __forceinline__ unsigned long long final_item(
+      unsigned long long key) const {
+    return key;
+  }
+};
+
+// Lane j of a packed key as the table stores it; 0xFFFFFFFF in every lane
+// of an empty slot.
+__device__ __forceinline__ long long lane_of(unsigned long long key, int j,
+                                             int lanes) {
+  if (key == kEmpty) return 0xFFFFFFFFll;
+  if (lanes == 1) return static_cast<long long>(key);
+  return static_cast<long long>(j == 0 ? key >> 32 : key & 0xFFFFFFFFull);
+}
+
+// Block insert: one CTA per block.  `bucket_start` ([2^g + 1]) bounds
+// each block's run of `part`.
+__global__ void __launch_bounds__(kInsertThreads, 2)
+    oa_block_insert_kernel(const unsigned long long* __restrict__ part,
+                           const int64_t* __restrict__ bucket_start,
+                           int lanes, uint32_t init1, int64_t table_size,
+                           int64_t* __restrict__ keys,
+                           int* __restrict__ counts,
+                           unsigned long long* __restrict__ overflow) {
+  extern __shared__ unsigned long long s_keys[];  // [kSlots], then counts
+  unsigned int* s_counts = reinterpret_cast<unsigned int*>(s_keys + kSlots);
+  __shared__ unsigned int s_overflow;
+  const int64_t begin = bucket_start[blockIdx.x];
+  const int64_t n = bucket_start[blockIdx.x + 1] - begin;
+  // Each thread's first key is read while the block is cleared, and each
+  // pass reads the next pass's key ahead.
+  unsigned long long next = threadIdx.x < n ? part[begin + threadIdx.x] : 0;
+  for (int s = threadIdx.x; s < kSlots; s += blockDim.x) {
+    s_keys[s] = kEmpty;
+    s_counts[s] = 0u;
+  }
+  if (threadIdx.x == 0) s_overflow = 0u;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  volatile unsigned long long* seen_keys = s_keys;
+  // The loop bound is uniform across a warp, so the ballot sees all lanes.
+  for (int64_t base = threadIdx.x & ~31; base < n; base += blockDim.x) {
+    const bool have = base + lane < n;
+    const unsigned int active = __ballot_sync(0xFFFFFFFFu, have);
+    if (!have) break;  // only the warp's last pass has idle lanes
+    const unsigned long long key = next;
+    if (base + blockDim.x + lane < n) {
+      next = part[begin + base + blockDim.x + lane];
+    }
+    const unsigned int group = __match_any_sync(active, key);
+    if (lane != __ffs(group) - 1) continue;
+    const unsigned int rows = __popc(group);
+    const uint32_t home = p3::hash_packed(key, lanes, init1) & kSlotMask;
     bool placed = false;
     for (uint32_t s = 0; s <= kSlotMask; ++s) {
-      const int64_t slot = base + ((home + s) & kSlotMask);
-      unsigned long long seen = __ldcg(slots + slot);
+      const uint32_t slot = (home + s) & kSlotMask;
+      unsigned long long seen = seen_keys[slot];
       if (seen == kEmpty) {
-        seen = atomicCAS(slots + slot, kEmpty, key);
-        if (seen == kEmpty) {  // claimed: publish the lanes
-          for (int j = 0; j < lanes; ++j) keys[j * table_size + slot] = row[j];
-          seen = key;
-        }
+        seen = atomicCAS(s_keys + slot, kEmpty, key);
+        if (seen == kEmpty) seen = key;  // claimed
       }
       if (seen == key) {
-        atomicAdd(counts + slot, 1);
+        atomicAdd(s_counts + slot, rows);
         placed = true;
         break;
       }
     }
-    if (!placed) atomicAdd(overflow, 1ull);
+    if (!placed) atomicAdd(&s_overflow, rows);
+  }
+  __syncthreads();
+
+  // Two slots a thread, so each lane's keys and the counts go out in
+  // 16- and 8-byte stores.
+  const int64_t first = static_cast<int64_t>(blockIdx.x) << kSlotsLog2;
+  for (int s = 2 * threadIdx.x; s < kSlots; s += 2 * blockDim.x) {
+    const unsigned long long k0 = s_keys[s], k1 = s_keys[s + 1];
+    const longlong2 hi = {lane_of(k0, 0, lanes), lane_of(k1, 0, lanes)};
+    reinterpret_cast<longlong2*>(keys + first)[s >> 1] = hi;
+    if (lanes == 2) {
+      const longlong2 lo = {lane_of(k0, 1, lanes), lane_of(k1, 1, lanes)};
+      reinterpret_cast<longlong2*>(keys + table_size + first)[s >> 1] = lo;
+    }
+    reinterpret_cast<int2*>(counts + first)[s >> 1] =
+        make_int2(static_cast<int>(s_counts[s]),
+                  static_cast<int>(s_counts[s + 1]));
+  }
+  if (threadIdx.x == 0 && s_overflow != 0u) {
+    atomicAdd(overflow, static_cast<unsigned long long>(s_overflow));
   }
 }
 
 }  // namespace
 
-// Inserts every row with contrib[i] != 0 into the table.  `slots` ([T]
-// uint64) must hold the all-ones empty marker, `counts` ([T] int32) zeros,
-// `keys` ([lanes, T] int64) the lanes to report for empty slots, and
-// `overflow` (one uint64) zero; T = 2^g_log2 * 8192.  Launches on `stream`;
-// returns cudaGetLastError() of the launch (0 = ok).
-extern "C" int oa_count_insert(const void* kmers, const void* contrib,
-                               long long rows, int lanes, unsigned int init1,
-                               int g_log2, void* slots, void* counts,
-                               void* keys, void* overflow, void* stream) {
-  if (rows <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  long long blocks = (rows + threads - 1) / threads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond this
+// The four passes, each launched on `stream` by its own call so that the
+// wrapper can scan the counts in between; each returns cudaGetLastError()
+// of its launch (0 = ok).  The table has T = 2^g_log2 * 8192 slots, one
+// bucket of the partition per block, with g_log2 = top_log2 + sub_log2
+// (partition.cuh).  `ctas` must be the same in the count and the scatter.
+//
+// Count: `hist` ([ctas, 2^top_log2] uint32) gets every CTA's rows per top
+// bucket, and `overflow` (one uint64, zeroed) every row that packs to the
+// empty marker.
+extern "C" int oa_partition_count(const void* kmers, const void* contrib,
+                                  long long rows, int lanes,
+                                  unsigned int init1, int top_log2,
+                                  int sub_log2, int ctas, void* hist,
+                                  void* overflow, void* stream) {
+  const OARows in{static_cast<const int64_t*>(kmers),
+                  static_cast<const uint8_t*>(contrib), rows, lanes, init1,
+                  top_log2 + sub_log2,
+                  static_cast<unsigned long long*>(overflow)};
+  return p3::launch_partition_count(in, top_log2, sub_log2, ctas, hist,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// Scatter: `offsets` ([ctas, 2^top_log2] uint64) holds where each CTA's
+// rows of each top bucket start in `part` (at least as many uint64 as the
+// count found).
+extern "C" int oa_partition_scatter(const void* kmers, const void* contrib,
+                                    long long rows, int lanes,
+                                    unsigned int init1, int top_log2,
+                                    int sub_log2, int ctas,
+                                    const void* offsets, void* part,
+                                    void* stream) {
+  const OARows in{static_cast<const int64_t*>(kmers),
+                  static_cast<const uint8_t*>(contrib), rows, lanes, init1,
+                  top_log2 + sub_log2, nullptr};
+  return p3::launch_partition_scatter(in, top_log2, sub_log2, ctas, offsets,
+                                      part, static_cast<cudaStream_t>(stream));
+}
+
+// Refine: `top_start` ([2^top_log2 + 1] int64) bounds each top bucket's
+// run of `part`; writes the runs grouped by block to `blocked` and where
+// each block starts to `bucket_start` ([2^g + 1] int64).
+extern "C" int oa_partition_refine(const void* part, const void* top_start,
+                                   int lanes, unsigned int init1,
+                                   int top_log2, int sub_log2, void* blocked,
+                                   void* bucket_start, void* stream) {
+  const OARefine refine{lanes, init1, top_log2 + sub_log2,
+                        (1u << sub_log2) - 1u};
+  return p3::launch_partition_refine<OARefine, unsigned long long>(
+      refine, top_log2, sub_log2, part, top_start, blocked, bucket_start,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Block insert: `bucket_start` ([2^g + 1] int64) bounds each block's run
+// of `blocked`.  Writes every slot of `counts` ([T] int32) and `keys`
+// ([lanes, T] int64, 0xFFFFFFFF in each lane of an empty slot), and adds
+// the rows that found their block full to `overflow`.
+extern "C" int oa_block_insert(const void* blocked, const void* bucket_start,
+                               int lanes, unsigned int init1, int g_log2,
+                               void* keys, void* counts, void* overflow,
+                               void* stream) {
+  const auto kernel = oa_block_insert_kernel;
+  const cudaError_t err = p3::allow_smem(kernel, kBlockSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t table_size = static_cast<int64_t>(1) << (g_log2 + kSlotsLog2);
-  oa_count_insert_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(kmers),
-      static_cast<const uint8_t*>(contrib), static_cast<int64_t>(rows),
-      lanes, init1, g_log2, table_size,
-      static_cast<unsigned long long*>(slots), static_cast<int*>(counts),
-      static_cast<int64_t*>(keys),
+  kernel<<<1u << g_log2, kInsertThreads, kBlockSmem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(blocked),
+      static_cast<const int64_t*>(bucket_start), lanes, init1, table_size,
+      static_cast<int64_t*>(keys), static_cast<int*>(counts),
       static_cast<unsigned long long*>(overflow));
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,15 +30,38 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
+__device__ __forceinline__ uint32_t mix_lane(uint32_t h, uint32_t lane) {
+  uint32_t kx = lane * kC1;
+  kx = rotl32(kx, 15) * kC2;
+  h ^= kx;
+  return rotl32(h, 13) * 5u + 0xE6546B64u;
+}
+
 __device__ __forceinline__ uint32_t hash_row(const int64_t* row, int lanes,
                                              uint32_t init) {
   uint32_t h = init;
   for (int j = 0; j < lanes; ++j) {
-    uint32_t kx = static_cast<uint32_t>(row[j]) * kC1;
-    kx = rotl32(kx, 15) * kC2;
-    h ^= kx;
-    h = rotl32(h, 13) * 5u + 0xE6546B64u;
+    h = mix_lane(h, static_cast<uint32_t>(row[j]));
   }
+  return fmix32(h ^ static_cast<uint32_t>(4 * lanes));
+}
+
+// A row's lanes packed into one value: lane0 << 32 | lane1 (lanes = 2) or
+// lane0 (lanes = 1).
+__device__ __forceinline__ unsigned long long pack_row(const int64_t* row,
+                                                       int lanes) {
+  const uint32_t lane0 = static_cast<uint32_t>(row[0]);
+  return lanes == 1 ? lane0
+                    : (static_cast<unsigned long long>(lane0) << 32) |
+                          static_cast<uint32_t>(row[1]);
+}
+
+// hash_row of a row given packed (pack_row).
+__device__ __forceinline__ uint32_t hash_packed(unsigned long long key,
+                                                int lanes, uint32_t init) {
+  uint32_t h = init;
+  if (lanes == 2) h = mix_lane(h, static_cast<uint32_t>(key >> 32));
+  h = mix_lane(h, static_cast<uint32_t>(key));
   return fmix32(h ^ static_cast<uint32_t>(4 * lanes));
 }
 

@@ -8,6 +8,14 @@ shared library with a plain C interface, which is loaded with ``ctypes``
 and header in ``csrc/``, so an edited file is rebuilt and never served
 stale.
 
+A kernel that runs as several passes (``bloom_set_bits``,
+``oa_count_insert``) is launched by a generator in its wrapper's module
+that yields after each pass; ``run_passes`` runs one to its end, and
+``chip_smoke.py`` steps through one to time each pass.  Both partition
+their items in two levels (``csrc/partition.cuh``); ``partition_levels``,
+``partition_ctas`` and ``partition_offsets`` size the passes and scan
+between them.
+
 Nothing here runs at import: the CPU tests import every module, and the
 CPU machines have no ``nvcc``.
 """
@@ -22,7 +30,11 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "library_path", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["load_library", "library_path", "NVCC_FLAGS", "run_passes",
+           "launch", "partition_levels", "partition_ctas",
+           "partition_offsets"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -104,11 +116,73 @@ def load_library():
     lib = ctypes.CDLL(str(path))
     vp, i, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                     ctypes.c_longlong)
-    lib.bloom_set_bits.argtypes = [vp, vp, ll, i, u, u, i, u, vp, vp]
-    lib.bloom_set_bits.restype = i
-    lib.bloom_blocked_set_bits.argtypes = [vp, vp, ll, i, u, u, i, i, vp, vp]
-    lib.bloom_blocked_set_bits.restype = i
-    lib.oa_count_insert.argtypes = [vp, vp, ll, i, u, i, vp, vp, vp, vp, vp]
-    lib.oa_count_insert.restype = i
+    for name, args in (
+            ("bloom_partition_count", [vp, vp, ll, i, u, u, i, u, i, i, i, i,
+                                       vp, vp]),
+            ("bloom_partition_scatter", [vp, vp, ll, i, u, u, i, u, i, i, i,
+                                         i, vp, vp, vp]),
+            ("bloom_partition_refine", [vp, vp, i, i, i, vp, vp, vp]),
+            ("bloom_region_or", [vp, vp, i, i, vp, vp, vp]),
+            ("bloom_blocked_set_bits", [vp, vp, ll, i, u, u, i, i, vp, vp]),
+            ("oa_partition_count", [vp, vp, ll, i, u, i, i, i, vp, vp, vp]),
+            ("oa_partition_scatter", [vp, vp, ll, i, u, i, i, i, vp, vp,
+                                      vp]),
+            ("oa_partition_refine", [vp, vp, i, u, i, i, vp, vp, vp]),
+            ("oa_block_insert", [vp, vp, i, u, i, vp, vp, vp, vp])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, i
     _lib = lib
     return lib
+
+
+def run_passes(passes):
+    """Run a wrapper's generator of kernel passes to its end and return
+    its result.  Each ``yield`` follows one pass's launch, so a caller
+    that steps through the generator itself can time every pass."""
+    try:
+        while True:
+            next(passes)
+    except StopIteration as done:
+        return done.value
+
+
+def launch(device, fn, *args) -> None:
+    """Call the library's ``fn`` with ``args`` and the current stream of
+    ``device``; raise if the launch returned a CUDA error."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+# The partition's first level has at most 2^8 top buckets, so that each
+# CTA's 256 open write ranges stay in L2 (csrc/partition.cuh).
+MAX_TOP_LOG2 = 8
+
+
+def partition_levels(buckets_log2: int) -> tuple[int, int]:
+    """``(top_log2, sub_log2)``: 2^buckets_log2 buckets split into top
+    buckets of the first level and sub-buckets of the refine."""
+    top = min(buckets_log2, MAX_TOP_LOG2)
+    return top, buckets_log2 - top
+
+
+def partition_ctas(device) -> int:
+    """CTAs of the count and scatter passes: two an SM."""
+    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def partition_offsets(hist: torch.Tensor):
+    """The scan between the count and the scatter.  ``hist [C, tops]``
+    holds each CTA's items per top bucket; returns ``offsets [C, tops]
+    int64``, where each CTA's items of each top bucket start in the
+    scratch (top buckets in order, CTAs in order inside each), and
+    ``top_start [tops + 1] int64``, where each top bucket starts, then
+    the total."""
+    ctas, tops = hist.shape
+    flat = hist.T.reshape(-1).to(torch.int64)
+    start = torch.zeros((flat.shape[0] + 1,), dtype=torch.int64,
+                        device=hist.device)
+    start[1:] = flat.cumsum(0)
+    offsets = start[:-1].reshape(tops, ctas).T.contiguous()
+    return offsets, torch.cat([start[:-1:ctas], start[-1:]])

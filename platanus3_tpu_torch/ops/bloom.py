@@ -12,7 +12,13 @@ The filter is ``2^log2_bits / 32`` packed 32-bit words held in an
 ``platanus3_tpu/ops/bloom_pallas.py::_set_bits_kernel``.  On a CUDA
 tensor it launches the kernel; on a CPU tensor it runs the plain PyTorch
 version, ``bloom_add_plain``, which mirrors the JAX build (probe
-positions -> sort -> dedup -> scatter-add of the bit values).
+positions -> sort -> dedup -> scatter-add of the bit values).  The kernel
+partitions the probes by filter region (``region_layout``) in two levels
+(count, scatter and refine passes, with scratch of two ``rows *
+num_hashes`` int32 arrays; ``kernels.partition_levels``), then ORs each
+region in one CTA's shared memory, reading the old words and writing
+every word of a new tensor, so the input filter is neither copied nor
+modified.
 """
 
 from __future__ import annotations
@@ -21,15 +27,22 @@ from typing import NamedTuple
 
 import torch
 
+from platanus3_tpu_torch import kernels
 from platanus3_tpu_torch.ops import hashing
 from platanus3_tpu_torch.ops.kmer import MASK32
 
 __all__ = ["BloomFilter", "make_bloom", "bloom_add", "bloom_add_plain",
-           "bloom_query", "log2_ceil", "words_to_signed"]
+           "bloom_query", "log2_ceil", "words_to_signed", "region_layout",
+           "bloom_add_passes"]
 
 # Largest filter the port builds; the JAX package's (hi, lo) two-lane
 # path for 2^32..2^35 bits is ROADMAP.md Queue 1 item 1.
 MAX_LOG2_BITS = 31
+# bloom_set_bits ORs the filter one region of at most 2^14 words (64 KB,
+# one CTA's shared memory) at a time.
+REGION_WORDS_LOG2 = 14
+# A row's probes must fit in one tile of the kernel's partition.
+MAX_KERNEL_HASHES = 8192
 
 
 class BloomFilter(NamedTuple):
@@ -112,29 +125,63 @@ def bloom_add_plain(bf: BloomFilter, kmers: torch.Tensor, k: int,
     return bf._replace(bits=bf.bits | words_to_signed(delta))
 
 
-def _bloom_add_cuda(bf: BloomFilter, kmers: torch.Tensor, k: int,
-                    mask: torch.Tensor | None) -> BloomFilter:
-    from platanus3_tpu_torch import kernels
+def region_layout(log2_bits: int) -> tuple[int, int]:
+    """``(region_words, regions)`` of a ``2^log2_bits``-bit filter in
+    ``bloom_set_bits``: regions of ``min(2^14, words)`` words."""
+    words_log2 = log2_bits - 5
+    region_log2 = min(REGION_WORDS_LOG2, words_log2)
+    return 1 << region_log2, 1 << (words_log2 - region_log2)
 
+
+def bloom_add_passes(bf: BloomFilter, kmers: torch.Tensor, k: int,
+                     mask: torch.Tensor | None):
+    """Launch ``bloom_set_bits``'s passes on the card, yielding after each;
+    the generator returns the new filter (``kernels.run_passes``)."""
     lib = kernels.load_library()
+    if bf.num_hashes > MAX_KERNEL_HASHES:
+        raise ValueError(f"bloom_set_bits takes at most {MAX_KERNEL_HASHES} "
+                         f"hashes, got {bf.num_hashes}")
     kmers = kmers.reshape(-1, kmers.shape[-1])
-    if not kmers.is_contiguous():
-        raise ValueError("k-mer lanes must be contiguous")
+    if not kmers.is_contiguous() or not bf.bits.is_contiguous():
+        raise ValueError("k-mer lanes and filter words must be contiguous")
+    mask_ptr = None
     if mask is not None:
         mask = mask.reshape(-1)
         if not mask.is_contiguous():
             raise ValueError("mask must be contiguous")
-    words = bf.bits.clone()
-    with torch.cuda.device(kmers.device):
-        stream = torch.cuda.current_stream(kmers.device).cuda_stream
-        err = lib.bloom_set_bits(
-            kmers.data_ptr(), None if mask is None else mask.data_ptr(),
-            kmers.shape[0], kmers.shape[1],
-            hashing.hash_init(k, hashing.SEED_H1),
-            hashing.hash_init(k, hashing.SEED_H2),
-            bf.num_hashes, (1 << bf.log2_bits) - 1, words.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"bloom_set_bits launch failed: CUDA error {err}")
+        mask_ptr = mask.data_ptr()
+    rows, lanes = kmers.shape
+    dev = kmers.device
+    region_words, regions = region_layout(bf.log2_bits)
+    region_bits_log2 = region_words.bit_length() - 1 + 5
+    top_log2, sub_log2 = kernels.partition_levels(regions.bit_length() - 1)
+    ctas = kernels.partition_ctas(dev)
+    probes = (kmers.data_ptr(), mask_ptr, rows, lanes,
+              hashing.hash_init(k, hashing.SEED_H1),
+              hashing.hash_init(k, hashing.SEED_H2), bf.num_hashes,
+              (1 << bf.log2_bits) - 1, region_bits_log2, top_log2, sub_log2,
+              ctas)
+    hist = torch.zeros((ctas, 1 << top_log2), dtype=torch.int32, device=dev)
+    kernels.launch(dev, lib.bloom_partition_count, *probes, hist.data_ptr())
+    yield "partition count"
+    offsets, top_start = kernels.partition_offsets(hist)
+    part = torch.empty((rows * bf.num_hashes,), dtype=torch.int32,
+                       device=dev)
+    kernels.launch(dev, lib.bloom_partition_scatter, *probes,
+                   offsets.data_ptr(), part.data_ptr())
+    yield "partition scatter"
+    regioned = torch.empty_like(part)
+    start = torch.empty((regions + 1,), dtype=torch.int64, device=dev)
+    kernels.launch(dev, lib.bloom_partition_refine, part.data_ptr(),
+                   top_start.data_ptr(), region_bits_log2, top_log2,
+                   sub_log2, regioned.data_ptr(), start.data_ptr())
+    del part
+    yield "partition refine"
+    words = torch.empty_like(bf.bits)
+    kernels.launch(dev, lib.bloom_region_or, regioned.data_ptr(),
+                   start.data_ptr(), regions, region_words,
+                   bf.bits.data_ptr(), words.data_ptr())
+    yield "region OR"
     bloom_add.kernel_launches += 1
     return bf._replace(bits=words)
 
@@ -152,7 +199,7 @@ def bloom_add(bf: BloomFilter, kmers: torch.Tensor, k: int,
     if not kmers.is_cuda:
         raise ValueError(f"unsupported device {kmers.device}")
     _check_add_args(bf, kmers, k, mask)
-    return _bloom_add_cuda(bf, kmers, k, mask)
+    return kernels.run_passes(bloom_add_passes(bf, kmers, k, mask))
 
 
 bloom_add.kernel_launches = 0  # launches of bloom_set_bits

@@ -108,17 +108,12 @@ def _build_blocked_cuda(kmers: torch.Tensor, k: int, mask, log2_bits: int,
     dev = kmers.device
     words = torch.zeros(((1 << log2_bits) // 32,), dtype=torch.int32,
                         device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bloom_blocked_set_bits(
-            kmers.data_ptr(), None if mask is None else mask.data_ptr(),
-            kmers.shape[0], kmers.shape[1],
-            hashing.hash_init(k, hashing.SEED_H1),
-            hashing.hash_init(k, hashing.SEED_H2), num_hashes,
-            log2_bits - _BLOCK_BITS_LOG2, words.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"bloom_blocked_set_bits launch failed: CUDA "
-                           f"error {err}")
+    kernels.launch(dev, lib.bloom_blocked_set_bits, kmers.data_ptr(),
+                   None if mask is None else mask.data_ptr(),
+                   kmers.shape[0], kmers.shape[1],
+                   hashing.hash_init(k, hashing.SEED_H1),
+                   hashing.hash_init(k, hashing.SEED_H2), num_hashes,
+                   log2_bits - _BLOCK_BITS_LOG2, words.data_ptr())
     build_blocked_bloom.kernel_launches += 1
     return words
 

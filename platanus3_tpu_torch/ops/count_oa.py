@@ -12,9 +12,13 @@ wrapping inside its block.  A slot is occupied iff its count is > 0.
 ``oa_count_insert`` (``csrc/count_oa.cu``), which replaces the Pallas
 kernel ``count_pallas._insert_kernel``.  On a CUDA tensor it launches the
 kernel; on a CPU tensor it runs the plain PyTorch version,
-``count_kmers_oa_plain``.  Slot layout depends on the order of inserts
-(the kernel's atomics, the JAX kernel's hash sort), so tables compare
-through ``oa_to_sorted``.
+``count_kmers_oa_plain``.  The kernel partitions the rows' packed keys
+by block in two levels (count, scatter and refine passes, with scratch of
+two ``rows`` int64 arrays; ``kernels.partition_levels``), then builds
+each block in one CTA's shared memory, which writes every slot of the
+keys and counts once, so the wrapper allocates them unfilled.  Slot
+layout depends on the order of inserts (the kernel's atomics, the JAX
+kernel's hash sort), so tables compare through ``oa_to_sorted``.
 
 Empty marker.  The kernel claims a slot by a compare-and-swap on the
 packed key ``lane0 << 32 | lane1`` against the value with all 64 bits
@@ -35,12 +39,13 @@ from typing import NamedTuple
 
 import torch
 
+from platanus3_tpu_torch import kernels
 from platanus3_tpu_torch.ops import count as count_mod
 from platanus3_tpu_torch.ops import hashing
 from platanus3_tpu_torch.ops.kmer import MASK32
 
 __all__ = ["OAHashTable", "count_kmers_oa", "count_kmers_oa_plain",
-           "oa_to_sorted", "table_log2_blocks", "empty_table",
+           "oa_passes", "oa_to_sorted", "table_log2_blocks",
            "probe_violations"]
 
 TB_LOG2 = 13
@@ -138,35 +143,43 @@ def count_kmers_oa_plain(kmers: torch.Tensor, contrib: torch.Tensor,
                        overflow=overflow.to(torch.int64))
 
 
-def empty_table(rows: int, lanes: int, device):
-    """The kernel's packed slot keys (all empty), counts, lane-major keys
-    and overflow for ``rows`` input rows, allocated and initialised."""
-    t = TB << table_log2_blocks(rows)
-    return (torch.full((t,), _EMPTY, dtype=torch.int64, device=device),
-            torch.zeros((t,), dtype=torch.int32, device=device),
-            torch.full((lanes, t), MASK32, dtype=torch.int64, device=device),
-            torch.zeros((), dtype=torch.int64, device=device))
-
-
-def _count_kmers_oa_cuda(kmers: torch.Tensor, contrib: torch.Tensor,
-                         k: int) -> OAHashTable:
-    from platanus3_tpu_torch import kernels
-
+def oa_passes(kmers: torch.Tensor, contrib: torch.Tensor, k: int):
+    """Launch ``oa_count_insert``'s passes on the card, yielding after
+    each; the generator returns the table (``kernels.run_passes``)."""
     lib = kernels.load_library()
     if not kmers.is_contiguous() or not contrib.is_contiguous():
         raise ValueError("k-mer lanes and contrib must be contiguous")
     n, lanes = kmers.shape
     dev = kmers.device
     g = table_log2_blocks(n)
-    slots, counts, keys, overflow = empty_table(n, lanes, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.oa_count_insert(
-            kmers.data_ptr(), contrib.data_ptr(), n, lanes,
-            hashing.hash_init(k, hashing.SEED_H1), g, slots.data_ptr(),
-            counts.data_ptr(), keys.data_ptr(), overflow.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"oa_count_insert launch failed: CUDA error {err}")
+    top_log2, sub_log2 = kernels.partition_levels(g)
+    ctas = kernels.partition_ctas(dev)
+    init1 = hashing.hash_init(k, hashing.SEED_H1)
+    rows = (kmers.data_ptr(), contrib.data_ptr(), n, lanes, init1, top_log2,
+            sub_log2, ctas)
+    hist = torch.zeros((ctas, 1 << top_log2), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    kernels.launch(dev, lib.oa_partition_count, *rows, hist.data_ptr(),
+                   overflow.data_ptr())
+    yield "partition count"
+    offsets, top_start = kernels.partition_offsets(hist)
+    part = torch.empty((n,), dtype=torch.int64, device=dev)
+    kernels.launch(dev, lib.oa_partition_scatter, *rows, offsets.data_ptr(),
+                   part.data_ptr())
+    yield "partition scatter"
+    blocked = torch.empty_like(part)
+    start = torch.empty(((1 << g) + 1,), dtype=torch.int64, device=dev)
+    kernels.launch(dev, lib.oa_partition_refine, part.data_ptr(),
+                   top_start.data_ptr(), lanes, init1, top_log2, sub_log2,
+                   blocked.data_ptr(), start.data_ptr())
+    del part
+    yield "partition refine"
+    keys = torch.empty((lanes, TB << g), dtype=torch.int64, device=dev)
+    counts = torch.empty((TB << g,), dtype=torch.int32, device=dev)
+    kernels.launch(dev, lib.oa_block_insert, blocked.data_ptr(),
+                   start.data_ptr(), lanes, init1, g, keys.data_ptr(),
+                   counts.data_ptr(), overflow.data_ptr())
+    yield "block insert"
     count_kmers_oa.kernel_launches += 1
     return OAHashTable(keys=keys, counts=counts, overflow=overflow)
 
@@ -184,7 +197,7 @@ def count_kmers_oa(kmers: torch.Tensor, contrib: torch.Tensor,
     if not kmers.is_cuda:
         raise ValueError(f"unsupported device {kmers.device}")
     _check_args(kmers, contrib, k)
-    return _count_kmers_oa_cuda(kmers, contrib, k)
+    return kernels.run_passes(oa_passes(kmers, contrib, k))
 
 
 count_kmers_oa.kernel_launches = 0  # launches of oa_count_insert

@@ -15,8 +15,9 @@ import torch
 from platanus3_tpu.ops import bloom as JB
 from platanus3_tpu.ops import bloom_pallas as JBP
 from platanus3_tpu.ops import kmer as JK
-from platanus3_tpu_torch import interop
+from platanus3_tpu_torch import interop, kernels
 from platanus3_tpu_torch.ops import bloom as TB
+from platanus3_tpu_torch.ops import hashing as TH
 
 
 def _t(x):
@@ -81,6 +82,25 @@ def test_bloom_query_equal(k, log2_bits, hashes):
     assert got.shape == (1000, 3)
     assert np.array_equal(got, want)
     assert got.reshape(-1)[:2000].all()  # no false negatives
+
+
+@pytest.mark.parametrize("log2_bits,region_words,regions,levels", [
+    (5, 1, 1, (0, 0)), (10, 32, 1, (0, 0)), (19, 16384, 1, (0, 0)),
+    (20, 16384, 2, (1, 0)), (30, 16384, 2048, (8, 3)),
+    (31, 16384, 4096, (8, 4))])
+def test_region_layout(log2_bits, region_words, regions, levels):
+    """Regions of min(2^14, words) words tile the filter; every probe of a
+    batch falls in one region, at an offset inside it."""
+    assert TB.region_layout(log2_bits) == (region_words, regions)
+    assert region_words * regions * 32 == 1 << log2_bits
+    assert kernels.partition_levels(regions.bit_length() - 1) == levels
+    canon = _t(canon_batch(2000, 25, seed=log2_bits))
+    h1, h2 = TH.double_hash(canon, 25)
+    pos = TH.probe_positions(h1, h2, 4, log2_bits)
+    region_bits_log2 = region_words.bit_length() - 1 + 5
+    assert int((pos >> region_bits_log2).max()) < regions
+    assert int((pos & ((1 << region_bits_log2) - 1)).max()) \
+        < region_words * 32
 
 
 def test_bloom_add_checks_inputs():

@@ -19,7 +19,7 @@ import torch
 
 from platanus3_tpu.ops import count_pallas as JOA
 from platanus3_tpu.ops import kmer as JK
-from platanus3_tpu_torch import interop
+from platanus3_tpu_torch import interop, kernels
 from platanus3_tpu_torch.ops import count as TC
 from platanus3_tpu_torch.ops import count_oa as TOA
 from platanus3_tpu_torch.ops import hashing as TH
@@ -211,3 +211,47 @@ def test_wide_k_and_bad_inputs_raise():
     TOA.count_kmers_oa(torch.zeros((4, 2), dtype=torch.int64),
                        torch.ones(4, dtype=torch.bool), 25)
     assert TOA.count_kmers_oa.kernel_launches == before  # CPU: plain
+
+
+@pytest.mark.parametrize("g,levels", [(0, (0, 0)), (1, (1, 0)), (8, (8, 0)),
+                                      (15, (8, 7)), (17, (8, 9))])
+def test_partition_levels(g, levels):
+    """2^g blocks split into at most 256 top buckets and their sub-buckets;
+    the main run's 10^8 rows give 256 top buckets of 128 blocks."""
+    assert kernels.partition_levels(g) == levels
+    top, sub = levels
+    assert top <= kernels.MAX_TOP_LOG2 and top + sub == g
+    assert kernels.partition_levels(TOA.table_log2_blocks(102_521_452)) \
+        == (8, 7)
+
+
+def test_partition_offsets_place_every_row_once():
+    """The scan between count and scatter, on the kernel's row walk
+    (``ctas`` CTAs, grid-stride): each CTA's range of each top bucket
+    starts where the CTAs before it end, top buckets in order, so the
+    scatter places every contributing row once and each top bucket's rows
+    lie together."""
+    k, ctas, threads = 21, 3, 4
+    canon = torch.from_numpy(canon_rows(k, 500, 200, seed=9).astype(np.int64))
+    contrib = torch.from_numpy(np.random.default_rng(9).random(500) < 0.7)
+    g = TOA.table_log2_blocks(500)
+    top_log2, sub_log2 = kernels.partition_levels(g)
+    block = TH.hash_kmers(canon, k, TH.SEED_H1) >> (32 - g)
+    top = block >> sub_log2
+    cta = (torch.arange(500) // threads) % ctas
+    hist = torch.zeros((ctas, 1 << top_log2), dtype=torch.int32)
+    for i in contrib.nonzero().squeeze(1).tolist():
+        hist[cta[i], top[i]] += 1
+    offsets, top_start = kernels.partition_offsets(hist)
+    assert offsets.dtype == top_start.dtype == torch.int64
+    assert top_start.shape == ((1 << top_log2) + 1,)
+    assert int(top_start[-1]) == int(contrib.sum())
+    cursor = offsets.clone()
+    part = torch.full((int(contrib.sum()),), -1, dtype=torch.int64)
+    for i in contrib.nonzero().squeeze(1).tolist():
+        part[cursor[cta[i], top[i]]] = i
+        cursor[cta[i], top[i]] += 1
+    assert sorted(part.tolist()) == contrib.nonzero().squeeze(1).tolist()
+    for t in range(1 << top_log2):
+        run = part[top_start[t]:top_start[t + 1]]
+        assert bool((top[run] == t).all())

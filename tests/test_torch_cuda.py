@@ -17,6 +17,7 @@ from platanus3_tpu_torch.ops import bloom as TB
 from platanus3_tpu_torch.ops import bloom_blocked as TBB
 from platanus3_tpu_torch.ops import count as TC
 from platanus3_tpu_torch.ops import count_oa as TOA
+from platanus3_tpu_torch.ops import hashing as TH
 from platanus3_tpu_torch.ops import kmer as TK
 from platanus3_tpu_torch.pipeline import assemble
 
@@ -42,8 +43,9 @@ def canon_batch(rows, k, seed, device):
 
 
 @pytest.mark.parametrize("k,log2_bits,hashes",
-                         [(25, 16, 3), (25, 20, 10), (32, 16, 2),
-                          (32, 20, 7), (32, 30, 10), (21, 31, 4)])
+                         [(25, 5, 3), (32, 10, 4), (25, 16, 3), (25, 20, 10),
+                          (32, 16, 2), (32, 20, 7), (32, 30, 10),
+                          (21, 31, 4)])
 def test_bloom_set_bits_matches_plain(cuda, k, log2_bits, hashes):
     canon = canon_batch(200_000, k, seed=k + log2_bits, device=cuda)
     mask = torch.rand(200_000, device=cuda) < 0.9
@@ -85,6 +87,52 @@ def test_oa_count_insert_matches_plain(cuda, k):
     assert int(g.size) == n
     assert torch.equal(g.keys[:n], ref.keys[:n])
     assert torch.equal(g.counts[:n], ref.counts[:n])
+
+
+def assert_oa_equals_plain(got, canon, contrib, k):
+    want = TOA.count_kmers_oa_plain(canon, contrib, k)
+    assert int(got.overflow) == int(want.overflow)
+    assert TOA.probe_violations(got, k) == 0
+    for a, b in zip(TOA.oa_to_sorted(got), TOA.oa_to_sorted(want)):
+        assert torch.equal(a, b)
+
+
+def test_oa_full_block_counts_overflow(cuda):
+    """8192 + 7 distinct keys of block 0 and one row packing to the empty
+    marker: 8 rows of overflow, block 0 full, every chain intact."""
+    k = 32
+    pool = canon_batch(40_000, k, seed=8, device=cuda).unique(dim=0)
+    h1 = TH.hash_kmers(pool, k, TH.SEED_H1)
+    block0 = pool[(h1 >> 31) == 0][:TOA.TB + 7]
+    assert block0.shape[0] == TOA.TB + 7
+    canon = torch.cat([block0, torch.full((1, 2), 0xFFFFFFFF,
+                                          dtype=torch.int64, device=cuda)])
+    assert TOA.table_log2_blocks(canon.shape[0]) == 1
+    contrib = torch.ones(canon.shape[0], dtype=torch.bool, device=cuda)
+    got = TOA.count_kmers_oa(canon, contrib, k)
+    assert int(got.overflow) == 7 + 1
+    assert int((got.counts[:TOA.TB] == 1).sum()) == TOA.TB
+    assert int(got.counts[TOA.TB:].sum()) == 0
+    assert TOA.probe_violations(got, k) == 0
+
+
+@pytest.mark.parametrize("k", [21, 32])
+def test_oa_skewed_key_count_exact(cuda, k):
+    """One key 200,000 times among random rows: the warp merge of equal
+    keys must still count every row."""
+    rand = canon_batch(100_000, k, seed=40 + k, device=cuda)
+    canon = torch.cat([rand, rand[:1].expand(200_000, -1)])
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    canon = canon[torch.randperm(canon.shape[0], generator=gen,
+                                 device=cuda)].contiguous()
+    contrib = torch.ones(canon.shape[0], dtype=torch.bool, device=cuda)
+    got = TOA.count_kmers_oa(canon, contrib, k)
+    assert int(got.overflow) == 0
+    want_rows = int((canon == rand[0]).all(dim=1).sum())
+    assert want_rows >= 200_000
+    at = ((got.keys.T == rand[0]).all(dim=1) & (got.counts > 0)).nonzero()
+    assert at.numel() == 1 and int(got.counts[at[0, 0]]) == want_rows
+    assert_oa_equals_plain(got, canon, contrib, k)
 
 
 @pytest.mark.parametrize("log2_bits", [19, 30, 33])
