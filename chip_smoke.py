@@ -28,8 +28,13 @@ Phases, each of which ends the run with a nonzero exit on failure:
    prints the largest block's row count and each pass's time;
 7. blocked Bloom: ``ops.bloom_blocked.build_blocked_bloom`` (kernel
    ``bloom_blocked_set_bits``) on the main run's node table at 2^30 and
-   2^33 bits, 10 hashes; words bit-equal to the plain build, no false
-   negative, false-positive share on 10^6 random k-mers below 10^-3;
+   2^33 bits, 10 hashes; words bit-equal to the plain build, overflow 0,
+   no false negative, false-positive share on 10^6 random k-mers below
+   10^-3; prints the largest block's item count, each pass's time and
+   that of the scan between the count and the scatter.
+   Then the skewed blocks at 2^30 bits: 200,000 distinct k-mers all in
+   block 0, and 200,000 copies of one k-mer, each bit-equal to the plain
+   build with overflow 0 and no false negative;
 8. main run: those reads through the port's ``cli.main`` with ``-k 32
    -m 1073741824 --membership bloom``; checks the launch count and that
    the straights cover >= 0.9 of the genome, >= 0.9 of their bases as
@@ -348,11 +353,66 @@ def oa_phase(arrays):
     return launches, err, sets
 
 
+def check_blocked(kmers, mask, log2_bits: int, what: str):
+    """``build_blocked_bloom`` on the card against the plain build: words
+    bit-equal, overflow 0, one launch, every masked-in k-mer a member.
+    Returns (words, max_abs_err)."""
+    import torch
+    from platanus3_tpu_torch.ops import bloom_blocked
+    before = bloom_blocked.build_blocked_bloom.kernel_launches
+    words, ovf = bloom_blocked.build_blocked_bloom(
+        kmers, MAIN_K, mask, log2_bits, MAIN_HASHES, return_overflow=True)
+    torch.cuda.synchronize()
+    if bloom_blocked.build_blocked_bloom.kernel_launches != before + 1:
+        raise AssertionError(f"blocked {what}: not one launch")
+    plain = bloom_blocked.build_blocked_bloom_plain(
+        kmers, MAIN_K, mask, log2_bits, MAIN_HASHES)
+    err = int((words.long() - plain.long()).abs().max())
+    if err != 0 or not torch.equal(words, plain) or int(ovf) != 0:
+        raise AssertionError(f"blocked {what}: kernel words differ from the "
+                             f"plain build (max_abs_err {err}, overflow "
+                             f"{int(ovf)})")
+    inserted = kmers if mask is None else kmers[mask]
+    if not bool(bloom_blocked.query_blocked(
+            words, inserted, MAIN_K, log2_bits, MAIN_HASHES).all()):
+        raise AssertionError(f"blocked {what}: an inserted k-mer is missing")
+    return words, err
+
+
+def block_of(kmers, log2_bits: int):
+    """Each k-mer's block in a ``2^log2_bits``-bit blocked filter."""
+    from platanus3_tpu_torch.ops import hashing
+    h1 = hashing.hash_kmers(kmers, MAIN_K, hashing.SEED_H1)
+    return h1 >> (32 - (log2_bits - 19))
+
+
+def blocked_skew_check(log2_bits: int = 30, rows: int = 200_000) -> int:
+    """The blocked build with every row in block 0: ``rows`` distinct
+    random k-mers picked for their block, then ``rows`` copies of one
+    k-mer.  Returns max_abs_err (0)."""
+    import torch
+    dev = torch.device("cuda")
+    distinct = torch.empty((0, 2), dtype=torch.int64, device=dev)
+    seed = 100
+    while distinct.shape[0] < rows:
+        pool = random_canon(1 << 25, MAIN_K, seed, dev)
+        distinct = torch.cat([distinct, pool[block_of(pool, log2_bits) == 0]]
+                             ).unique(dim=0)
+        seed += 1
+    words, err = check_blocked(distinct, None, log2_bits, "skew, distinct")
+    if int(words[1 << 14:].ne(0).sum()):
+        raise AssertionError("skew: a bit set outside block 0")
+    copies = distinct[:1].expand(rows, -1).contiguous()
+    return max(err, check_blocked(copies, None, log2_bits, "skew, copies")[1])
+
+
 def blocked_phase(arrays):
     """The blocked Bloom build of the main run's node table (stage 1 of
     the main run, padded to the graph capacity as the main run's filter
-    input).  Returns (launches, max_abs_err, per-size measurements)."""
+    input), then the skewed blocks.  Returns (launches, max_abs_err,
+    per-size measurements)."""
     import torch
+    from platanus3_tpu_torch import kernels
     from platanus3_tpu_torch.ops import bloom_blocked
     from platanus3_tpu_torch.pipeline import (_graph_cap, _pad_table_keys,
                                               _stage1)
@@ -368,40 +428,52 @@ def blocked_phase(arrays):
     launches, err, sizes = 0, 0, {}
     for lb in BLOCKED_LOG2_BITS:
         bloom_blocked.build_blocked_bloom.kernel_launches = 0
-        words, ovf = bloom_blocked.build_blocked_bloom(
-            nodes, MAIN_K, mask, lb, MAIN_HASHES, return_overflow=True)
-        torch.cuda.synchronize()
+        words, lb_err = check_blocked(nodes, mask, lb, f"2^{lb}")
         launches += bloom_blocked.build_blocked_bloom.kernel_launches
-        plain = bloom_blocked.build_blocked_bloom_plain(
-            nodes, MAIN_K, mask, lb, MAIN_HASHES)
-        err = max(err, int((words.long() - plain.long()).abs().max()))
-        if not torch.equal(words, plain) or int(ovf) != 0:
-            raise AssertionError(f"blocked 2^{lb}: kernel words differ from "
-                                 f"the plain build")
-        del plain
-        if not bool(bloom_blocked.query_blocked(
-                words, nodes[:size], MAIN_K, lb, MAIN_HASHES).all()):
-            raise AssertionError(f"blocked 2^{lb}: a node is missing")
+        err = max(err, lb_err)
         fp = float(bloom_blocked.query_blocked(
             words, probes, MAIN_K, lb, MAIN_HASHES).double().mean())
         if fp >= 1e-3:
             raise AssertionError(f"blocked 2^{lb}: false-positive share "
                                  f"{fp} >= 1e-3")
+        blocks = 1 << (lb - 19)
+        largest = int(torch.bincount(block_of(nodes[:size], lb),
+                                     minlength=blocks).max())
         m = {"nodes": size, "rows": nodes.shape[0], "fp_share": fp,
+             "largest_block": largest, "mean_block": size / blocks,
              "bound_ms": bytes_bound_ms(nbytes(nodes, mask, words))}
         del words
         m["ms"] = cuda_time_ms(lambda: bloom_blocked.build_blocked_bloom(
             nodes, MAIN_K, mask, lb, MAIN_HASHES), 10)
+        m["passes"] = pass_times_ms(
+            lambda: bloom_blocked.build_blocked_bloom_passes(
+                nodes, MAIN_K, mask, lb, MAIN_HASHES), 10)
+        # The scatter pass's time includes this scan of the counts, a few
+        # small PyTorch launches from the host.
+        hist = torch.zeros((kernels.partition_ctas(nodes.device),
+                            1 << bloom_blocked.blocked_layout(lb)[0]),
+                           dtype=torch.int32, device=nodes.device)
+        m["scan_ms"] = cuda_time_ms(lambda: kernels.partition_offsets(hist),
+                                    10)
         m["plain_ms"] = cuda_time_ms(
             lambda: bloom_blocked.build_blocked_bloom_plain(
                 nodes, MAIN_K, mask, lb, MAIN_HASHES), 5)
         torch.cuda.empty_cache()
         log(f"blocked 2^{lb} bits, {MAIN_HASHES} hashes: {m['rows']} rows, "
-            f"{size} nodes; words bit-equal, no false negative, "
+            f"{size} nodes; words bit-equal, overflow 0, no false negative, "
             f"false-positive share {fp} on {FP_PROBES} random k-mers; "
+            f"largest block {largest} items (mean {m['mean_block']:.1f}); "
             f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms")
+        log(f"blocked 2^{lb} passes: {fmt_passes(m['passes'])}; the scan "
+            f"between count and scatter alone {m['scan_ms']:.4f} ms")
         sizes[lb] = m
+    del nodes, mask, probes
+    torch.cuda.empty_cache()
+    err = max(err, blocked_skew_check())
+    log("blocked skew at 2^30 bits: 200000 distinct k-mers in block 0 and "
+        "200000 copies of one k-mer, each bit-equal to the plain build, "
+        "overflow 0, no false negative, one launch")
     return launches, err, sizes
 
 

@@ -30,19 +30,31 @@
 // sector round trip to device memory.  The input words are read, never
 // written, so the wrapper needs no copy of them.
 //
-// Design of bloom_blocked_set_bits.  One thread per k-mer row reads the
-// row's L int64 lanes (each a uint32 value) and its mask byte, hashes, and
-// issues num_hashes atomicOr of 1u << (p & 31) into the probed word.  Its
-// blocks are the regions above, but it does not partition yet.
+// Design of bloom_blocked_set_bits.  The same partition, then one CTA per
+// block.  A row sends every probe into its own block, so the partition
+// carries one item a masked-in row, not one a probe: probe n,
+// (h1 + n*h2) & (2^19 - 1), depends only on the low 19 bits of h1 and of
+// h2, and the item is those 38 bits in a uint64, with the block's low
+// sub_log2 bits above them for the refine.  That is the point of the
+// Pallas design too, which sorted one (h1, h2) pair a k-mer.  The build
+// CTA zeroes its 64 KB block in shared memory (no read of device memory:
+// the build always starts from an empty filter), expands each item's
+// num_hashes probes with shared atomicOr and writes the block once,
+// coalesced, so the output needs no fill.  No block's rows are capped:
+// the refine's CTA and the build's CTA walk a run of any length, so all
+// rows landing in one block only saturate its words.  The Pallas kernel
+// gave each block a budget of chunks and dropped the rows past it as
+// overflow; here nothing is dropped and the wrapper's overflow is 0.
 //
 // Bound.  Both are bound by bytes: the lanes and mask read once and the
 // words written once (and, for bloom_set_bits, the old words read once).
-// A 2^30-bit flat filter is 128 MB and does not fit in the H100's 50 MB
-// L2, so a probe issued to device memory is a miss; bloom_set_bits instead
-// reads its input twice and, a probe, writes 4 bytes of scratch twice and
-// reads them three times.  The blocked layout keeps a row's probes inside
-// one 64 KB block, but its 10 probes still touch 10 different 32-byte
-// sectors of device memory.
+// bloom_set_bits reads its input twice and, a probe, writes 4 bytes of
+// scratch twice and reads them three times.  bloom_blocked_set_bits reads
+// its input twice and, a row, writes 8 bytes of scratch twice and reads
+// them three times: at the main shape (4.5M rows, 10 hashes) 36 MB of
+// items against 186 MB of probes for the flat build.  A 2^30-bit filter
+// is 128 MB and does not fit in the H100's 50 MB L2, so no probe goes to
+// device memory: each one is a shared-memory atomic on its CTA's SM.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // (platanus3_tpu_torch/kernels.py), bound with ctypes.
@@ -57,6 +69,11 @@ namespace {
 
 constexpr uint32_t kBlockBitsMask = (1u << 19) - 1u;
 constexpr int kBlockWordsLog2 = 14;
+constexpr int kBlockWords = 1 << kBlockWordsLog2;
+// A blocked build's item: h1's low 19 bits, h2's above them, then the
+// block's sub-bucket.
+constexpr int kItemH2Shift = 19;
+constexpr int kItemSubShift = 38;
 constexpr int kRegionThreads = 512;
 
 // The partition's rows: each masked-in row's num_hashes probes, bucketed
@@ -146,31 +163,98 @@ __global__ void __launch_bounds__(kRegionThreads)
   }
 }
 
-__global__ void bloom_blocked_set_bits_kernel(
-    const int64_t* __restrict__ kmers, const uint8_t* __restrict__ mask,
-    int64_t rows, int lanes, uint32_t init1, uint32_t init2, int num_hashes,
-    int log2_blocks, unsigned int* __restrict__ words) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < rows; i += stride) {
-    if (mask != nullptr && mask[i] == 0) continue;
-    uint32_t h1, h2;
-    p3::double_hash_row(kmers + i * lanes, lanes, init1, init2, &h1, &h2);
-    const uint64_t blk = log2_blocks > 0 ? (h1 >> (32 - log2_blocks)) : 0u;
-    unsigned int* block = words + (blk << kBlockWordsLog2);
-    for (int n = 0; n < num_hashes; ++n) {
-      const uint32_t p =
-          (h1 + static_cast<uint32_t>(n) * h2) & kBlockBitsMask;
-      atomicOr(block + (p >> 5), 1u << (p & 31u));
-    }
+// The blocked build's rows: one item a masked-in row, bucketed by its
+// block.  The item holds what the build needs of the double hash, the low
+// 19 bits of h1 and of h2, and, above them, the block's low sub_log2 bits,
+// from which the refine finds its sub-bucket.
+struct BlockedRows {
+  using Item = unsigned long long;
+  const int64_t* kmers;
+  const uint8_t* mask;
+  int64_t rows;
+  int lanes;
+  uint32_t init1;
+  uint32_t init2;
+  int log2_blocks;
+  uint32_t sub_mask;
+
+  __host__ __device__ int per_row() const { return 1; }
+
+  struct Row {
+    uint32_t h1;
+    uint32_t h2;
+    uint8_t flag;
+  };
+
+  __device__ __forceinline__ Row load(int64_t i) const {
+    Row row;
+    p3::double_hash_row(kmers + i * lanes, lanes, init1, init2, &row.h1,
+                        &row.h2);
+    row.flag = mask != nullptr ? mask[i] : uint8_t{1};
+    return row;
   }
+
+  template <class F>
+  __device__ __forceinline__ void items(const Row& row, F&& f) const {
+    if (row.flag == 0) return;
+    const uint32_t blk = log2_blocks > 0 ? row.h1 >> (32 - log2_blocks) : 0u;
+    f(blk, (row.h1 & kBlockBitsMask) |
+               (static_cast<unsigned long long>(row.h2 & kBlockBitsMask)
+                << kItemH2Shift) |
+               (static_cast<unsigned long long>(blk & sub_mask)
+                << kItemSubShift));
+  }
+};
+
+struct BlockedRefine {
+  __device__ __forceinline__ uint32_t sub(unsigned long long item) const {
+    return static_cast<uint32_t>(item >> kItemSubShift);
+  }
+  __device__ __forceinline__ unsigned long long final_item(
+      unsigned long long item) const {
+    return item & ((1ull << kItemSubShift) - 1ull);
+  }
+};
+
+BlockedRows blocked_rows(const void* kmers, const void* mask, long long rows,
+                         int lanes, unsigned int init1, unsigned int init2,
+                         int top_log2, int sub_log2) {
+  return BlockedRows{static_cast<const int64_t*>(kmers),
+                     static_cast<const uint8_t*>(mask), rows, lanes, init1,
+                     init2, top_log2 + sub_log2, (1u << sub_log2) - 1u};
 }
 
-unsigned int grid_for(long long rows, int threads) {
-  long long blocks = (rows + threads - 1) / threads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond this
-  return static_cast<unsigned int>(blocks);
+// Block build: one CTA per block sets the probes of the block's items
+// (h1 and h2 of each, 19 bits apiece) in an empty 64 KB block of shared
+// memory, then writes the whole block.
+__global__ void __launch_bounds__(kRegionThreads)
+    bloom_block_build_kernel(const unsigned long long* __restrict__ items,
+                             const int64_t* __restrict__ bucket_start,
+                             int num_hashes, unsigned int* __restrict__ words) {
+  extern __shared__ __align__(16) unsigned int s_block[];
+  uint4* s_block4 = reinterpret_cast<uint4*>(s_block);
+  for (int w = threadIdx.x; w < kBlockWords / 4; w += blockDim.x) {
+    s_block4[w] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  p3::for_each_loaded(
+      bucket_start[blockIdx.x], bucket_start[blockIdx.x + 1],
+      [&](int64_t i) { return items[i]; },
+      [&](int64_t, unsigned long long item) {
+        uint32_t p = static_cast<uint32_t>(item) & kBlockBitsMask;
+        const uint32_t h2 =
+            static_cast<uint32_t>(item >> kItemH2Shift) & kBlockBitsMask;
+        for (int n = 0; n < num_hashes; ++n) {
+          atomicOr(s_block + (p >> 5), 1u << (p & 31u));
+          p = (p + h2) & kBlockBitsMask;
+        }
+      });
+  __syncthreads();
+  uint4* out = reinterpret_cast<uint4*>(
+      words + (static_cast<int64_t>(blockIdx.x) << kBlockWordsLog2));
+  for (int w = threadIdx.x; w < kBlockWords / 4; w += blockDim.x) {
+    out[w] = s_block4[w];
+  }
 }
 
 }  // namespace
@@ -248,20 +332,65 @@ extern "C" int bloom_region_or(const void* regioned, const void* bucket_start,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocked build into `words` (2^log2_blocks blocks of 16384 words, already
-// zeroed or holding an earlier build).  Launches on `stream`; returns
-// cudaGetLastError() of the launch (0 = ok).  `mask` may be null.
-extern "C" int bloom_blocked_set_bits(const void* kmers, const void* mask,
-                                      long long rows, int lanes,
-                                      unsigned int init1, unsigned int init2,
-                                      int num_hashes, int log2_blocks,
-                                      void* words, void* stream) {
-  if (rows <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  bloom_blocked_set_bits_kernel<<<grid_for(rows, threads), threads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(kmers), static_cast<const uint8_t*>(mask),
-      static_cast<int64_t>(rows), lanes, init1, init2, num_hashes,
-      log2_blocks, static_cast<unsigned int*>(words));
+// bloom_blocked_set_bits runs as four passes too, each launched on
+// `stream` by its own call and returning cudaGetLastError() of its launch.
+// The filter has 2^(top_log2 + sub_log2) blocks of 16384 words, one bucket
+// of the partition each.  `mask` may be null; `ctas` must be the same in
+// the count and the scatter.
+//
+// Count: `hist` ([ctas, 2^top_log2] uint32) gets every CTA's masked-in
+// rows per top bucket.
+extern "C" int bloom_blocked_partition_count(
+    const void* kmers, const void* mask, long long rows, int lanes,
+    unsigned int init1, unsigned int init2, int top_log2, int sub_log2,
+    int ctas, void* hist, void* stream) {
+  return p3::launch_partition_count(
+      blocked_rows(kmers, mask, rows, lanes, init1, init2, top_log2,
+                   sub_log2),
+      top_log2, sub_log2, ctas, hist, static_cast<cudaStream_t>(stream));
+}
+
+// Scatter: `offsets` ([ctas, 2^top_log2] uint64) holds where each CTA's
+// items of each top bucket start in `part` (at least as many uint64 as the
+// count found).
+extern "C" int bloom_blocked_partition_scatter(
+    const void* kmers, const void* mask, long long rows, int lanes,
+    unsigned int init1, unsigned int init2, int top_log2, int sub_log2,
+    int ctas, const void* offsets, void* part, void* stream) {
+  return p3::launch_partition_scatter(
+      blocked_rows(kmers, mask, rows, lanes, init1, init2, top_log2,
+                   sub_log2),
+      top_log2, sub_log2, ctas, offsets, part,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Refine: `top_start` ([2^top_log2 + 1] int64) bounds each top bucket's
+// run of `part`; writes the items grouped by block to `blocked` and where
+// each block starts to `bucket_start` ([blocks + 1] int64).
+extern "C" int bloom_blocked_partition_refine(const void* part,
+                                              const void* top_start,
+                                              int top_log2, int sub_log2,
+                                              void* blocked,
+                                              void* bucket_start,
+                                              void* stream) {
+  return p3::launch_partition_refine<BlockedRefine, unsigned long long>(
+      BlockedRefine{}, top_log2, sub_log2, part, top_start, blocked,
+      bucket_start, static_cast<cudaStream_t>(stream));
+}
+
+// Block build: `bucket_start` ([blocks + 1] int64) bounds each block's run
+// of `blocked`.  Writes every word of `words` ([blocks * 16384]).
+extern "C" int bloom_block_build(const void* blocked, const void* bucket_start,
+                                 int blocks, int num_hashes, void* words,
+                                 void* stream) {
+  const auto kernel = bloom_block_build_kernel;
+  const size_t smem = kBlockWords * sizeof(unsigned int);
+  const cudaError_t err = p3::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned int>(blocks), kRegionThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(blocked),
+      static_cast<const int64_t*>(bucket_start), num_hashes,
+      static_cast<unsigned int*>(words));
   return static_cast<int>(cudaGetLastError());
 }

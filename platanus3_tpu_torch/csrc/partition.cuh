@@ -1,9 +1,10 @@
-// Two-level hash partition shared by oa_count_insert and bloom_set_bits.
+// Two-level hash partition shared by oa_count_insert, bloom_set_bits and
+// bloom_blocked_set_bits.
 //
-// Both kernels group their items (a row's packed key; a probe's bit
-// offset) by bucket (a table block; a filter region) and then build each
-// bucket in one CTA's shared memory.  The grouping takes three passes and
-// no global atomic:
+// All three group their items (a row's packed key; a probe's bit offset;
+// a row's hash bits) by bucket (a table block; a filter region; a filter
+// block) and then build each bucket in one CTA's shared memory.  The
+// grouping takes three passes and no global atomic:
 //
 //   count:   a fixed grid of `ctas` CTAs walks the rows in tiles, tile j
 //            to CTA j mod ctas, and tallies each item's top bucket (the

@@ -7,8 +7,10 @@ commit, unpacked with ``git archive`` into a directory that ``.gitignore``
 lists).  The two trees run in turns, other, this, this, other, each turn
 in fresh processes on one CUDA card:
 
-- kernels: ``bloom_set_bits`` (through ``ops.bloom.bloom_add``) at the
-  main run's shape and ``oa_count_insert`` (through
+- kernels: ``bloom_set_bits`` (through ``ops.bloom.bloom_add``) and
+  ``bloom_blocked_set_bits`` at 2^30 and 2^33 bits (through
+  ``ops.bloom_blocked.build_blocked_bloom``) at the main run's shape,
+  and ``oa_count_insert`` (through
   ``ops.count_oa.count_kmers_oa``) on the main run's short (k = 21) and
   k = 32 positions, each timed by CUDA events with ``chip_smoke.py``'s
   helpers of that tree;
@@ -38,7 +40,7 @@ _KERNELS = r"""
 import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
-from platanus3_tpu_torch.ops import bloom, count_oa, kmer, solid
+from platanus3_tpu_torch.ops import bloom, bloom_blocked, count_oa, kmer, solid
 from platanus3_tpu_torch.pipeline import _graph_cap
 dev = torch.device("cuda")
 rows = _graph_cap(cs.GENOME_LEN)
@@ -47,6 +49,10 @@ mask = torch.arange(rows, device=dev) < cs.GENOME_LEN
 empty = bloom.make_bloom(cs.MAIN_FILTER_BITS, cs.MAIN_HASHES, device=dev)
 out = {"bloom_set_bits_ms": cs.cuda_time_ms(
     lambda: bloom.bloom_add(empty, canon, cs.MAIN_K, mask=mask), 20)}
+for lb in cs.BLOCKED_LOG2_BITS:
+    out[f"bloom_blocked_set_bits_2^{lb}_ms"] = cs.cuda_time_ms(
+        lambda: bloom_blocked.build_blocked_bloom(
+            canon, cs.MAIN_K, mask, lb, cs.MAIN_HASHES), 20)
 del canon, mask
 _, _, arrays = cs.main_reads()
 bases = kmer.unpack_bases(arrays["packed"])

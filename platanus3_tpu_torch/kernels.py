@@ -8,13 +8,13 @@ shared library with a plain C interface, which is loaded with ``ctypes``
 and header in ``csrc/``, so an edited file is rebuilt and never served
 stale.
 
-A kernel that runs as several passes (``bloom_set_bits``,
-``oa_count_insert``) is launched by a generator in its wrapper's module
-that yields after each pass; ``run_passes`` runs one to its end, and
-``chip_smoke.py`` steps through one to time each pass.  Both partition
-their items in two levels (``csrc/partition.cuh``); ``partition_levels``,
-``partition_ctas`` and ``partition_offsets`` size the passes and scan
-between them.
+Each kernel runs as several passes (``bloom_set_bits``,
+``oa_count_insert``, ``bloom_blocked_set_bits``) and is launched by a
+generator in its wrapper's module that yields after each pass;
+``run_passes`` runs one to its end, and ``chip_smoke.py`` steps through
+one to time each pass.  All three partition their items in two levels
+(``csrc/partition.cuh``); ``partition_levels``, ``partition_ctas`` and
+``partition_offsets`` size the passes and scan between them.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU machines have no ``nvcc``.
@@ -123,7 +123,12 @@ def load_library():
                                          i, vp, vp, vp]),
             ("bloom_partition_refine", [vp, vp, i, i, i, vp, vp, vp]),
             ("bloom_region_or", [vp, vp, i, i, vp, vp, vp]),
-            ("bloom_blocked_set_bits", [vp, vp, ll, i, u, u, i, i, vp, vp]),
+            ("bloom_blocked_partition_count", [vp, vp, ll, i, u, u, i, i, i,
+                                               vp, vp]),
+            ("bloom_blocked_partition_scatter", [vp, vp, ll, i, u, u, i, i,
+                                                 i, vp, vp, vp]),
+            ("bloom_blocked_partition_refine", [vp, vp, i, i, vp, vp, vp]),
+            ("bloom_block_build", [vp, vp, i, i, vp, vp]),
             ("oa_partition_count", [vp, vp, ll, i, u, i, i, i, vp, vp, vp]),
             ("oa_partition_scatter", [vp, vp, ll, i, u, i, i, i, vp, vp,
                                       vp]),

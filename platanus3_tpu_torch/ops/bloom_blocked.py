@@ -16,17 +16,31 @@ kernel ``bloom_pallas._blocked_kernel``.  On a CUDA tensor it launches
 the kernel; on a CPU tensor it runs the plain PyTorch version,
 ``build_blocked_bloom_plain`` (block and position per probe, sort, dedup,
 ``index_add_``, as ``bloom.bloom_add_plain`` does for the flat filter).
+The kernel partitions one item a masked-in k-mer (the low 19 bits of
+``h1`` and ``h2``) by block in two levels (``blocked_layout``; count,
+scatter and refine passes with scratch of two ``rows`` int64 arrays),
+then builds each block from zero in one CTA's shared memory and writes
+every word, so the output is allocated and never filled.
+
+Unlike the JAX package, the build drops no row.  The Pallas kernel gives
+each block ``c_max = ceil(1.6 * N / blocks / 2048) + 2`` chunks of 2048
+rows and reports the rows past them as overflow, so its words can miss
+inserted k-mers; here a block takes any number of rows, the words are
+those of every masked-in row, and the overflow is always 0.  Where the
+Pallas overflow is 0 the words are equal.
 """
 
 from __future__ import annotations
 
 import torch
 
+from platanus3_tpu_torch import kernels
 from platanus3_tpu_torch.ops import hashing
 from platanus3_tpu_torch.ops.bloom import words_to_signed
 
 __all__ = ["build_blocked_bloom", "build_blocked_bloom_plain",
-           "query_blocked", "BLOCK_WORDS", "MIN_LOG2_BITS", "MAX_LOG2_BITS"]
+           "build_blocked_bloom_passes", "blocked_layout", "query_blocked",
+           "BLOCK_WORDS", "MIN_LOG2_BITS", "MAX_LOG2_BITS"]
 
 BLOCK_WORDS = 1 << 14
 _BLOCK_BITS_LOG2 = 19
@@ -40,6 +54,15 @@ def _check_log2_bits(log2_bits: int):
     if not MIN_LOG2_BITS <= log2_bits <= MAX_LOG2_BITS:
         raise ValueError(f"blocked filter of 2^{log2_bits} bits: needs "
                          f"{MIN_LOG2_BITS} <= log2_bits <= {MAX_LOG2_BITS}")
+
+
+def blocked_layout(log2_bits: int) -> tuple[int, int, int]:
+    """``(top_log2, sub_log2, blocks)`` of a ``2^log2_bits``-bit filter in
+    ``bloom_blocked_set_bits``: its ``2^(log2_bits - 19)`` blocks split
+    into the partition's top buckets and sub-buckets."""
+    _check_log2_bits(log2_bits)
+    g = log2_bits - _BLOCK_BITS_LOG2
+    return (*kernels.partition_levels(g), 1 << g)
 
 
 def _blocked_hashes(kmers: torch.Tensor, k: int, log2_bits: int):
@@ -69,7 +92,7 @@ def _check_build_args(kmers: torch.Tensor, k: int, mask, log2_bits: int):
 
 def _result(words: torch.Tensor, return_overflow: bool):
     if return_overflow:
-        # No chunk budget here, so no probe can be left uncovered.
+        # No chunk budget, so no row is dropped (module docstring).
         return words, torch.zeros((), dtype=torch.int64, device=words.device)
     return words
 
@@ -97,23 +120,42 @@ def build_blocked_bloom_plain(kmers: torch.Tensor, k: int,
     return _result(words_to_signed(delta), return_overflow)
 
 
-def _build_blocked_cuda(kmers: torch.Tensor, k: int, mask, log2_bits: int,
-                        num_hashes: int) -> torch.Tensor:
-    from platanus3_tpu_torch import kernels
-
+def build_blocked_bloom_passes(kmers: torch.Tensor, k: int, mask,
+                               log2_bits: int, num_hashes: int):
+    """Launch ``bloom_blocked_set_bits``'s passes on the card, yielding
+    after each; the generator returns the words (``kernels.run_passes``)."""
     lib = kernels.load_library()
     if not kmers.is_contiguous() or (mask is not None
                                      and not mask.is_contiguous()):
         raise ValueError("k-mer lanes and mask must be contiguous")
+    rows, lanes = kmers.shape
     dev = kmers.device
-    words = torch.zeros(((1 << log2_bits) // 32,), dtype=torch.int32,
+    top_log2, sub_log2, blocks = blocked_layout(log2_bits)
+    ctas = kernels.partition_ctas(dev)
+    args = (kmers.data_ptr(), None if mask is None else mask.data_ptr(),
+            rows, lanes, hashing.hash_init(k, hashing.SEED_H1),
+            hashing.hash_init(k, hashing.SEED_H2), top_log2, sub_log2, ctas)
+    hist = torch.zeros((ctas, 1 << top_log2), dtype=torch.int32, device=dev)
+    kernels.launch(dev, lib.bloom_blocked_partition_count, *args,
+                   hist.data_ptr())
+    yield "partition count"
+    offsets, top_start = kernels.partition_offsets(hist)
+    part = torch.empty((rows,), dtype=torch.int64, device=dev)
+    kernels.launch(dev, lib.bloom_blocked_partition_scatter, *args,
+                   offsets.data_ptr(), part.data_ptr())
+    yield "partition scatter"
+    blocked = torch.empty_like(part)
+    start = torch.empty((blocks + 1,), dtype=torch.int64, device=dev)
+    kernels.launch(dev, lib.bloom_blocked_partition_refine, part.data_ptr(),
+                   top_start.data_ptr(), top_log2, sub_log2,
+                   blocked.data_ptr(), start.data_ptr())
+    del part
+    yield "partition refine"
+    words = torch.empty((blocks * BLOCK_WORDS,), dtype=torch.int32,
                         device=dev)
-    kernels.launch(dev, lib.bloom_blocked_set_bits, kmers.data_ptr(),
-                   None if mask is None else mask.data_ptr(),
-                   kmers.shape[0], kmers.shape[1],
-                   hashing.hash_init(k, hashing.SEED_H1),
-                   hashing.hash_init(k, hashing.SEED_H2), num_hashes,
-                   log2_bits - _BLOCK_BITS_LOG2, words.data_ptr())
+    kernels.launch(dev, lib.bloom_block_build, blocked.data_ptr(),
+                   start.data_ptr(), blocks, num_hashes, words.data_ptr())
+    yield "block build"
     build_blocked_bloom.kernel_launches += 1
     return words
 
@@ -125,7 +167,8 @@ def build_blocked_bloom(kmers: torch.Tensor, k: int,
 
     ``mask [N] bool`` drops masked rows (``None`` keeps all).  Returns
     ``[2^log2_bits / 32] int32`` words and, with ``return_overflow``, a
-    0-dim overflow count that is always 0.  A CUDA tensor goes through the
+    0-dim overflow count that is always 0 (no row is dropped, unlike the
+    JAX package's build: module docstring).  A CUDA tensor goes through the
     ``bloom_blocked_set_bits`` kernel, a CPU tensor through
     ``build_blocked_bloom_plain``.
     """
@@ -135,8 +178,8 @@ def build_blocked_bloom(kmers: torch.Tensor, k: int,
     if not kmers.is_cuda:
         raise ValueError(f"unsupported device {kmers.device}")
     _check_build_args(kmers, k, mask, log2_bits)
-    return _result(_build_blocked_cuda(kmers, k, mask, log2_bits,
-                                       num_hashes), return_overflow)
+    return _result(kernels.run_passes(build_blocked_bloom_passes(
+        kmers, k, mask, log2_bits, num_hashes)), return_overflow)
 
 
 build_blocked_bloom.kernel_launches = 0  # launches of bloom_blocked_set_bits

@@ -4,7 +4,9 @@ On a CPU tensor ``ops/bloom_blocked.build_blocked_bloom`` runs its plain
 PyTorch version; its words must be bit-equal to the Pallas kernel
 ``bloom_pallas.build_blocked_bloom`` run in interpret mode, with masked
 and duplicate rows, and ``query_blocked`` must answer as the JAX query.
-The CUDA kernel is held to the plain version in
+Where the Pallas build overflows its per-block budget the two differ on
+purpose: the JAX words drop the rows past the budget, the port's keep
+them.  The CUDA kernel is held to the plain version in
 ``tests/test_torch_cuda.py``, which needs the card.
 """
 
@@ -19,6 +21,7 @@ from platanus3_tpu.ops import bloom_pallas as JBP
 from platanus3_tpu.ops import kmer as JK
 from platanus3_tpu_torch import interop
 from platanus3_tpu_torch.ops import bloom_blocked as TBB
+from platanus3_tpu_torch.ops import hashing as TH
 
 CASES = [(25, 19, 6), (25, 21, 8), (32, 21, 10)]
 
@@ -116,3 +119,48 @@ def test_cpu_runs_plain_and_other_devices_raise():
         TBB.build_blocked_bloom(canon.to("meta"), 25, None, 19, 4)
     with pytest.raises(TypeError):
         TBB.build_blocked_bloom(canon.to(torch.int32), 25, None, 19, 4)
+
+
+def test_overflow_differs_from_jax_on_purpose():
+    """7,000 distinct k-mers, all in block 0 of a 2^22-bit filter: the
+    Pallas build's budget of ``c_max = 3`` chunks of 2048 rows drops 856
+    of them, and its words miss exactly those; the port keeps every row
+    and reports no overflow."""
+    k, log2_bits, hashes, n = 25, 22, 6, 7000
+    pool = np.unique(canon_batch(100_000, k, seed=7), axis=0)
+    h1 = TH.hash_kmers(_t(pool), k, TH.SEED_H1).numpy()
+    canon = pool[(h1 >> (32 - (log2_bits - 19))) == 0][:n]
+    assert canon.shape[0] == n
+    mask = np.ones(n, bool)
+    jw, jovf = JBP.build_blocked_bloom(jnp.asarray(canon), k,
+                                       jnp.asarray(mask), log2_bits, hashes,
+                                       interpret=True, return_overflow=True)
+    tw, tovf = TBB.build_blocked_bloom(_t(canon), k, torch.from_numpy(mask),
+                                       log2_bits, hashes,
+                                       return_overflow=True)
+    assert int(jovf) == n - 3 * 2048 > 0
+    assert int(tovf) == 0
+    jw, tw = np.asarray(jw), tw.numpy().view(np.uint32)
+    assert not np.any(jw & ~tw)          # JAX's bits are a subset
+    assert np.any(jw != tw)
+    jhit = np.asarray(JBP.query_blocked(jnp.asarray(jw), jnp.asarray(canon),
+                                        k, log2_bits, hashes))
+    assert int((~jhit).sum()) == int(jovf)
+    words = interop.from_numpy_bloom(tw, log2_bits, hashes).bits
+    assert bool(TBB.query_blocked(words, _t(canon), k, log2_bits,
+                                  hashes).all())
+
+
+@pytest.mark.parametrize("log2_bits", range(TBB.MIN_LOG2_BITS,
+                                            TBB.MAX_LOG2_BITS + 1))
+def test_blocked_layout(log2_bits):
+    """Blocks split into at most 2^8 top buckets and sub-buckets; the
+    sub-bucket rides above the item's 38 hash bits."""
+    top_log2, sub_log2, blocks = TBB.blocked_layout(log2_bits)
+    assert blocks << 19 == 1 << log2_bits
+    assert top_log2 == min(log2_bits - 19, 8)
+    assert 1 << (top_log2 + sub_log2) == blocks
+    assert 38 + sub_log2 <= 64
+    named = {19: (0, 0), 30: (8, 3), 33: (8, 6), 35: (8, 8)}
+    if log2_bits in named:
+        assert (top_log2, sub_log2) == named[log2_bits]

@@ -135,11 +135,12 @@ def test_oa_skewed_key_count_exact(cuda, k):
     assert_oa_equals_plain(got, canon, contrib, k)
 
 
-@pytest.mark.parametrize("log2_bits", [19, 30, 33])
-def test_bloom_blocked_set_bits_matches_plain(cuda, log2_bits):
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("log2_bits", [19, 20, 30, 33, 35])
+def test_bloom_blocked_set_bits_matches_plain(cuda, log2_bits, masked):
     k, hashes = 32, 10
     canon = canon_batch(200_000, k, seed=log2_bits, device=cuda)
-    mask = torch.rand(200_000, device=cuda) < 0.9
+    mask = torch.rand(200_000, device=cuda) < 0.9 if masked else None
     before = TBB.build_blocked_bloom.kernel_launches
     got, ovf = TBB.build_blocked_bloom(canon, k, mask, log2_bits, hashes,
                                        return_overflow=True)
@@ -148,8 +149,44 @@ def test_bloom_blocked_set_bits_matches_plain(cuda, log2_bits):
     assert int(ovf) == 0
     want = TBB.build_blocked_bloom_plain(canon, k, mask, log2_bits, hashes)
     assert torch.equal(got, want)
-    assert bool(TBB.query_blocked(got, canon[mask], k, log2_bits,
-                                  hashes).all())
+    inserted = canon[mask] if masked else canon
+    assert bool(TBB.query_blocked(got, inserted, k, log2_bits, hashes).all())
+
+
+def kmers_in_block0(n, k, log2_bits, device):
+    """At least ``n`` distinct canonical k-mers whose block in a
+    ``2^log2_bits``-bit blocked filter is 0."""
+    picked = torch.empty((0, TK.num_lanes(k)), dtype=torch.int64,
+                         device=device)
+    seed = 1000
+    while picked.shape[0] < n:
+        pool = canon_batch(1 << 25, k, seed=seed, device=device)
+        h1 = TH.hash_kmers(pool, k, TH.SEED_H1)
+        picked = torch.cat([picked, pool[(h1 >> (51 - log2_bits)) == 0]]
+                           ).unique(dim=0)
+        seed += 1
+    return picked
+
+
+@pytest.mark.parametrize("case", ["distinct", "copies"])
+def test_bloom_blocked_skewed_block(cuda, case):
+    """Every row in block 0 of a 2^30-bit filter: 200,000 distinct k-mers,
+    or 200,000 copies of one.  Nothing caps a block's rows."""
+    k, log2_bits, hashes = 32, 30, 10
+    canon = kmers_in_block0(200_000, k, log2_bits, cuda)
+    assert canon.shape[0] >= 200_000
+    if case == "copies":
+        canon = canon[:1].expand(200_000, -1).contiguous()
+    before = TBB.build_blocked_bloom.kernel_launches
+    got, ovf = TBB.build_blocked_bloom(canon, k, None, log2_bits, hashes,
+                                       return_overflow=True)
+    torch.cuda.synchronize()
+    assert TBB.build_blocked_bloom.kernel_launches == before + 1
+    assert int(ovf) == 0
+    assert torch.equal(got, TBB.build_blocked_bloom_plain(
+        canon, k, None, log2_bits, hashes))
+    assert int(got[TBB.BLOCK_WORDS:].ne(0).sum()) == 0
+    assert bool(TBB.query_blocked(got, canon, k, log2_bits, hashes).all())
 
 
 def test_gpu_assembly_equals_cpu(cuda):
