@@ -10,20 +10,24 @@ Phases, each of which ends the run with a nonzero exit on failure:
 2. build: compiles the CUDA kernels from ``platanus3_tpu_torch/csrc``;
 3. kernel vs plain: ``bloom_set_bits`` (through ``ops.bloom.bloom_add``)
    against the plain PyTorch build on the card, at a small shape, at the
-   main run's shape and at filters from 2^5 to 2^31 bits; the words must
+   main run's shape (k = 32, 2^30 bits), at that shape with k = 64 and
+   k = 128 (four and eight lanes) and with 2^32, 2^33 and 2^35 bits (the
+   wide positions), and at filters from 2^5 to 2^35 bits; the words must
    be bit-equal and the input filter unmodified; times from CUDA events,
    for the whole call and for each of its passes;
 4. CPU/GPU parity: a 20 kb genome at 25x in Bloom mode with a filter small
-   enough that the false-positive closure runs; the GFA line lists from
-   the card and from the CPU (plain versions) must be identical;
+   enough that the false-positive closure runs; then the same reads
+   through multi-k (k = 32, 64) with tips clipped and bubbles popped in a
+   2^32-bit filter; the GFA line lists from the card and from the CPU
+   (plain versions) must be identical;
 5. the main run's reads: a generated genome of E. coli K-12 MG1655's
    length and GC (4,641,652 bp, 50.8 %; NCBI NC_000913.3), 20x of 10 kb
    reads with 0.1 % substitutions (BASELINE config 1), chunked as the main
    run chunks them;
 6. OA counter: ``ops.count_oa.count_kmers_oa`` (kernel
-   ``oa_count_insert``) on every chunk position of those reads, once for
-   the short k = 21 k-mers and once for the k = 32 ones (about 10^8 rows
-   each); the kernel's table, the plain table and the sort counter's
+   ``oa_count_insert``) on every chunk position of those reads, for the
+   short k = 21 k-mers, the k = 32 ones and the k = 64 ones (about 10^8
+   rows each); the kernel's table, the plain table and the sort counter's
    table must be equal, overflow 0, every slot reachable by probing;
    prints the largest block's row count and each pass's time;
 7. blocked Bloom: ``ops.bloom_blocked.build_blocked_bloom`` (kernel
@@ -31,16 +35,28 @@ Phases, each of which ends the run with a nonzero exit on failure:
    2^33 bits, 10 hashes; words bit-equal to the plain build, overflow 0,
    no false negative, false-positive share on 10^6 random k-mers below
    10^-3; prints the largest block's item count, each pass's time and
-   that of the scan between the count and the scatter.
-   Then the skewed blocks at 2^30 bits: 200,000 distinct k-mers all in
-   block 0, and 200,000 copies of one k-mer, each bit-equal to the plain
-   build with overflow 0 and no false negative;
+   that of the scan between the count and the scatter.  Then random
+   k = 64 k-mers at the same shape and 2^30 bits, and the skewed blocks
+   at 2^30 bits: 200,000 distinct k-mers all in block 0, and 200,000
+   copies of one k-mer, each bit-equal to the plain build with overflow 0
+   and no false negative;
 8. main run: those reads through the port's ``cli.main`` with ``-k 32
    -m 1073741824 --membership bloom``; checks the launch count and that
    the straights cover >= 0.9 of the genome, >= 0.9 of their bases as
-   exact genome substrings.
+   exact genome substrings;
+9. multi-k run: the same reads through ``cli.main`` with ``--k-list
+   32,64,128 --clip-tips --pop-bubbles --membership bloom -m 8589934592``
+   (BASELINE configs 4 and 3, a 2^33-bit filter); checks one
+   ``bloom_set_bits`` launch a round and that the last round's straights
+   cover >= 0.9 of the genome; prints each round's nodes, straights,
+   junctions, N50, simplification drops, stage spans (the simplification
+   split into its parts) and peak device memory.  The share of exact
+   genome substrings is printed, not held to 0.9: the bubble rule of the
+   JAX package, which the port keeps, pops the loop arm of tandem arrays
+   (ROADMAP.md Queue 3).  The witness is the same run without
+   ``--pop-bubbles``, held to both quality bounds.
 
-Phases 6-8 each drive their path with the kernels' launch counts set to
+Phases 6-9 each drive their path with the kernels' launch counts set to
 0 just before and read just after; launches made to compare a kernel with
 its plain version or to time it are not counted.  The second-to-last line
 is the kernels' JSON (times from CUDA events, bounds from this run's
@@ -61,8 +77,16 @@ GENOME_GC = 0.508
 MAIN_FILTER_BITS = 1 << 30
 MAIN_HASHES = 10
 MAIN_K, SHORT_K, CHUNK_LEN, COV_THRESHOLD = 32, 21, 1024, 2
+MULTIK_K_LIST = (32, 64, 128)
+MULTIK_FILTER_BITS = 1 << 33
 BLOCKED_LOG2_BITS = (30, 33)
-BLOOM_CHECK_LOG2_BITS = (5, 10, 19, 20, 31)
+BLOOM_CHECK_LOG2_BITS = (5, 10, 19, 20, 31, 32, 35)
+# (k, log2_bits) of bloom_set_bits at the main shape: the main run's,
+# then more lanes, then the wide positions, then the multi-k run's last.
+BLOOM_MAIN_SHAPES = ((32, 30), (64, 30), (128, 30), (32, 32), (32, 33),
+                     (32, 35), (128, 33))
+OA_KS = (SHORT_K, MAIN_K, 64)
+WIDE_BLOCKED_K = 64
 FP_PROBES = 1_000_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
 BLOOM_SOURCE = "platanus3_tpu_torch/csrc/bloom.cu"
@@ -153,7 +177,8 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
             "bound_by": "bytes", "library_ms": library_ms}
 
 
-def kernel_vs_plain(rows, valid_rows, k, log2_bits, hashes, seed, reps):
+def kernel_vs_plain(rows, valid_rows, k, log2_bits, hashes, seed, reps,
+                    plain_reps=None):
     """Kernel and plain build on the same inputs: (max_abs_err, ms,
     plain_ms, bound_ms, per-pass ms).  The bound reads the lanes, the mask
     and the old words once and writes the words once."""
@@ -169,6 +194,7 @@ def kernel_vs_plain(rows, valid_rows, k, log2_bits, hashes, seed, reps):
     torch.cuda.synchronize()
     if not torch.equal(empty.bits, old):
         raise AssertionError("bloom_set_bits modified its input filter")
+    del old
     err = int((got.bits.long() - want.bits.long()).abs().max())
     if not torch.equal(got.bits, want.bits) or err != 0:
         raise AssertionError(f"bloom_set_bits differs from the plain build "
@@ -176,14 +202,40 @@ def kernel_vs_plain(rows, valid_rows, k, log2_bits, hashes, seed, reps):
                              f"max_abs_err={err}")
     if int(got.bits.ne(0).sum()) == 0:
         raise AssertionError("kernel set no bit")
+    bound = bytes_bound_ms(nbytes(canon, mask, empty.bits, got.bits))
+    del got, want
+    torch.cuda.empty_cache()
     ms = cuda_time_ms(lambda: bloom.bloom_add(empty, canon, k, mask=mask),
                       reps)
     plain_ms = cuda_time_ms(
-        lambda: bloom.bloom_add_plain(empty, canon, k, mask=mask), reps)
-    bound = bytes_bound_ms(nbytes(canon, mask, empty.bits, got.bits))
+        lambda: bloom.bloom_add_plain(empty, canon, k, mask=mask),
+        plain_reps or reps)
     passes = pass_times_ms(
         lambda: bloom.bloom_add_passes(empty, canon, k, mask), reps)
+    del canon, mask, empty
+    torch.cuda.empty_cache()
     return err, ms, plain_ms, bound, passes
+
+
+def bloom_main_shapes(rows):
+    """``bloom_set_bits`` at the main shape (``rows`` rows, the genome's
+    length of them masked in, 10 hashes) for each of BLOOM_MAIN_SHAPES.
+    Returns one measurement dict a shape."""
+    out = []
+    for k, lb in BLOOM_MAIN_SHAPES:
+        err, ms, plain_ms, bound, passes = kernel_vs_plain(
+            rows, GENOME_LEN, k, lb, MAIN_HASHES, seed=2, reps=10,
+            plain_reps=3)
+        shape = f"{rows} rows, {GENOME_LEN} masked in, k={k}, 2^{lb} bits, " \
+                f"{MAIN_HASHES} hashes"
+        log(f"kernel main shape ({shape}): max_abs_err {err}, kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms")
+        log(f"kernel main shape k={k} 2^{lb} passes: {fmt_passes(passes)}")
+        out.append({"shape": shape, "k": k, "log2_bits": lb,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "library_ms": None,
+                    "passes": passes})
+    return out
 
 
 def bloom_sizes_check(rows=200_000, k=25, hashes=4) -> int:
@@ -241,13 +293,32 @@ def parity_run():
     return gpu
 
 
-def n50(lengths):
-    total, acc = sum(lengths), 0
-    for x in sorted(lengths, reverse=True):
-        acc += x
-        if 2 * acc >= total:
-            return x
-    return 0
+def multik_parity_run():
+    """The parity run's reads through multi-k (k = 32, then 64) with tips
+    clipped and bubbles popped, Bloom membership in a 2^32-bit filter (the
+    wide positions), on the card and on the CPU; the GFA line lists must be
+    identical and the card must launch ``bloom_set_bits`` once a round."""
+    from platanus3_tpu_torch import sim
+    from platanus3_tpu_torch.config import AssemblyConfig
+    from platanus3_tpu_torch.graph.multik import assemble_multik
+    from platanus3_tpu_torch.ops import bloom
+    genome = sim.random_genome(20_000, seed=7)
+    reads = sim.simulate_reads(genome, coverage=25, read_len=1000, seed=8,
+                               sub_rate=0.01)
+    cfg = AssemblyConfig(k=32, k_list=(32, 64), clip_tips=True,
+                         pop_bubbles=True, use_exact_membership=False,
+                         filter_bits=1 << 32, log_path=None)
+    before = bloom.bloom_add.kernel_launches
+    gpu = assemble_multik(reads, cfg, write_output=False, device="cuda")
+    if bloom.bloom_add.kernel_launches != before + 2:
+        raise AssertionError("multi-k parity: not one bloom_set_bits launch "
+                             "a round")
+    cpu = assemble_multik(reads, cfg, write_output=False, device="cpu")
+    if gpu.gfa_lines != cpu.gfa_lines:
+        raise AssertionError("multi-k parity: GPU and CPU GFA differ")
+    if gpu.num_straights < 1:
+        raise AssertionError("multi-k parity: no straight")
+    return gpu
 
 
 def main_reads(genome_len: int = GENOME_LEN, device: str = "cuda"):
@@ -274,14 +345,15 @@ def main_reads(genome_len: int = GENOME_LEN, device: str = "cuda"):
 
 def oa_phase(arrays):
     """The OA counter on every chunk position of the main run's reads, for
-    the short k-mers and the k = 32 ones.  Returns (launches, max_abs_err,
-    per-set measurements)."""
+    the short k-mers, the k = 32 ones and the k = 64 ones (two order
+    words, rows of four lanes).  Returns (launches, max_abs_err, per-set
+    measurements)."""
     import torch
     from platanus3_tpu_torch.ops import count as count_mod
     from platanus3_tpu_torch.ops import count_oa, hashing, kmer, solid
     bases = kmer.unpack_bases(arrays["packed"])
     launches, err, sets = 0, 0, {}
-    for kk in (SHORT_K, MAIN_K):
+    for kk in OA_KS:
         canon, _, owned = solid.short_kmer_positions(
             bases, arrays["valid_len"], arrays["start"], arrays["read_len"],
             arrays["stride"], kk, MAIN_K)
@@ -321,6 +393,8 @@ def oa_phase(arrays):
                                  f"counter's")
         del got, want, ref, plain
         okeys = count_mod.order_keys(canon)[contrib]
+        if okeys.shape[1] == 1:
+            okeys = okeys[:, 0]
         m = {"rows": canon.shape[0], "contributing": int(contrib.sum()),
              "unique": n, "slots": table.counts.shape[0],
              "largest_bucket": largest,
@@ -333,9 +407,11 @@ def oa_phase(arrays):
         m["passes"] = pass_times_ms(
             lambda: count_oa.oa_passes(canon, contrib, kk), 5)
         m["plain_ms"] = cuda_time_ms(
-            lambda: count_oa.count_kmers_oa_plain(canon, contrib, kk), 3)
+            lambda: count_oa.count_kmers_oa_plain(canon, contrib, kk),
+            3 if okeys.dim() == 1 else 1)
         m["unique_ms"] = cuda_time_ms(
-            lambda: torch.unique(okeys, return_counts=True), 5)
+            lambda: torch.unique(okeys, dim=0 if okeys.dim() > 1 else None,
+                                 return_counts=True), 5)
         m["sort_counter_ms"] = cuda_time_ms(
             lambda: count_mod.count_kmers(canon, contrib, k=kk), 5)
         del okeys, canon, contrib
@@ -353,7 +429,7 @@ def oa_phase(arrays):
     return launches, err, sets
 
 
-def check_blocked(kmers, mask, log2_bits: int, what: str):
+def check_blocked(kmers, mask, log2_bits: int, what: str, k: int = MAIN_K):
     """``build_blocked_bloom`` on the card against the plain build: words
     bit-equal, overflow 0, one launch, every masked-in k-mer a member.
     Returns (words, max_abs_err)."""
@@ -361,12 +437,12 @@ def check_blocked(kmers, mask, log2_bits: int, what: str):
     from platanus3_tpu_torch.ops import bloom_blocked
     before = bloom_blocked.build_blocked_bloom.kernel_launches
     words, ovf = bloom_blocked.build_blocked_bloom(
-        kmers, MAIN_K, mask, log2_bits, MAIN_HASHES, return_overflow=True)
+        kmers, k, mask, log2_bits, MAIN_HASHES, return_overflow=True)
     torch.cuda.synchronize()
     if bloom_blocked.build_blocked_bloom.kernel_launches != before + 1:
         raise AssertionError(f"blocked {what}: not one launch")
     plain = bloom_blocked.build_blocked_bloom_plain(
-        kmers, MAIN_K, mask, log2_bits, MAIN_HASHES)
+        kmers, k, mask, log2_bits, MAIN_HASHES)
     err = int((words.long() - plain.long()).abs().max())
     if err != 0 or not torch.equal(words, plain) or int(ovf) != 0:
         raise AssertionError(f"blocked {what}: kernel words differ from the "
@@ -374,7 +450,7 @@ def check_blocked(kmers, mask, log2_bits: int, what: str):
                              f"{int(ovf)})")
     inserted = kmers if mask is None else kmers[mask]
     if not bool(bloom_blocked.query_blocked(
-            words, inserted, MAIN_K, log2_bits, MAIN_HASHES).all()):
+            words, inserted, k, log2_bits, MAIN_HASHES).all()):
         raise AssertionError(f"blocked {what}: an inserted k-mer is missing")
     return words, err
 
@@ -468,7 +544,30 @@ def blocked_phase(arrays):
         log(f"blocked 2^{lb} passes: {fmt_passes(m['passes'])}; the scan "
             f"between count and scatter alone {m['scan_ms']:.4f} ms")
         sizes[lb] = m
+    rows = nodes.shape[0]
     del nodes, mask, probes
+    torch.cuda.empty_cache()
+    wide = random_canon(rows, WIDE_BLOCKED_K, seed=4, device="cuda")
+    mask = torch.arange(rows, device=wide.device) < size
+    lb = BLOCKED_LOG2_BITS[0]
+    bloom_blocked.build_blocked_bloom.kernel_launches = 0
+    words, wide_err = check_blocked(wide, mask, lb, f"k={WIDE_BLOCKED_K}",
+                                    k=WIDE_BLOCKED_K)
+    launches += bloom_blocked.build_blocked_bloom.kernel_launches
+    err = max(err, wide_err)
+    m = {"rows": rows, "bound_ms": bytes_bound_ms(nbytes(wide, mask, words))}
+    del words
+    m["ms"] = cuda_time_ms(lambda: bloom_blocked.build_blocked_bloom(
+        wide, WIDE_BLOCKED_K, mask, lb, MAIN_HASHES), 10)
+    m["plain_ms"] = cuda_time_ms(
+        lambda: bloom_blocked.build_blocked_bloom_plain(
+            wide, WIDE_BLOCKED_K, mask, lb, MAIN_HASHES), 5)
+    log(f"blocked k={WIDE_BLOCKED_K} 2^{lb} bits: {rows} random rows, "
+        f"{size} masked in; words bit-equal, overflow 0, no false negative; "
+        f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+        f"{m['bound_ms']:.4f} ms")
+    sizes[f"k{WIDE_BLOCKED_K}"] = m
+    del wide, mask
     torch.cuda.empty_cache()
     err = max(err, blocked_skew_check())
     log("blocked skew at 2^30 bits: 200000 distinct k-mers in block 0 and "
@@ -477,70 +576,122 @@ def blocked_phase(arrays):
     return launches, err, sizes
 
 
-def main_run(workdir: Path, genome: str, reads, device: str = "cuda"):
-    import torch
-    from platanus3_tpu_torch import cli, sim
-    from platanus3_tpu_torch.ops import bloom
+def run_stats(run_log: Path) -> list:
+    """The stats line of every ``assemble`` call in a run log."""
+    return [json.loads(line.split("] stats ", 1)[1])
+            for line in run_log.read_text().splitlines()
+            if "] stats {" in line]
 
-    genome_len = len(genome)
+
+def check_quality(gfa: Path, genome: str, what: str,
+                  hold_exact: bool = True):
+    """Straight length sum against the genome and the share of straight
+    bases that are exact genome substrings; the first must be >= 0.9, and
+    the second too with ``hold_exact``.  Returns (straights, junctions,
+    length sum, N50, exact share)."""
+    from platanus3_tpu_torch import sim
+    from platanus3_tpu_torch.pipeline import _n50 as n50
+    lines = gfa.read_text().splitlines()
+    straights = [ln.split("\t")[2] for ln in lines
+                 if ln.startswith("S\tStraight")]
+    n_jun = sum(1 for ln in lines if ln.startswith("S\tJunction"))
+    lengths = [len(x) for x in straights]
+    total = sum(lengths)
+    rc_genome = sim.revcomp(genome)
+    exact = sum(len(x) for x in straights if x in genome or x in rc_genome)
+    share = exact / max(total, 1)
+    log(f"{what}: straight length sum {total} "
+        f"({total / len(genome):.4f} of the genome), N50 {n50(lengths)}, "
+        f"exact-substring share {share:.4f}")
+    if total < 0.9 * len(genome):
+        raise AssertionError(f"{what}: straights cover {total} < 0.9 x "
+                             f"{len(genome)}")
+    if hold_exact and exact < 0.9 * total:
+        raise AssertionError(f"{what}: only {exact} of {total} straight "
+                             f"bases are exact genome substrings")
+    return len(straights), n_jun, total, n50(lengths), share
+
+
+def cli_run(workdir: Path, fasta: Path, args, device: str = "cuda"):
+    """``cli.main`` on ``fasta`` with ``args``, with ``bloom_set_bits``'s
+    launch count set to 0 just before and read just after.  Returns
+    (wall s, launches, GFA path, stats of every round)."""
+    import torch
+    from platanus3_tpu_torch import cli
+    from platanus3_tpu_torch.ops import bloom
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
 
-    fasta = workdir / "reads.fasta"
-    with open(fasta, "w") as f:
-        for i, r in enumerate(reads):
-            f.write(f">r{i}\n{r}\n")
-
     gfa, run_log = workdir / "out.gfa", workdir / "run.log"
+    run_log.unlink(missing_ok=True)
     bloom.bloom_add.kernel_launches = 0
     sync()
     t1 = time.time()
-    rc = cli.main(["-i", str(fasta), "-k", "32", "-m",
-                   str(MAIN_FILTER_BITS), "--membership", "bloom",
-                   "-o", str(gfa), "--log", str(run_log),
-                   "--profile-stages", "--device", device])
+    rc = cli.main(["-i", str(fasta), *args, "-o", str(gfa), "--log",
+                   str(run_log), "--profile-stages", "--device", device])
     sync()
     wall = time.time() - t1
     launches = bloom.bloom_add.kernel_launches
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
-
-    stats = None
-    for line in run_log.read_text().splitlines():
-        if "] stats {" in line:
-            stats = json.loads(line.split("] stats ", 1)[1])
-    if stats is None:
+    stats = run_stats(run_log)
+    if not stats:
         raise AssertionError("no stats line in the run log")
-    lines = gfa.read_text().splitlines()
-    straights = [ln.split("\t")[2] for ln in lines
-                 if ln.startswith("S\tStraight")]
-    n_jun = sum(1 for ln in lines if ln.startswith("S\tJunction"))
-    lengths = [len(s) for s in straights]
-    total = sum(lengths)
-    rc_genome = sim.revcomp(genome)
-    exact = sum(len(s) for s in straights if s in genome or s in rc_genome)
+    return wall, launches, gfa, stats
 
+
+def main_run(workdir: Path, genome: str, fasta: Path, device: str = "cuda"):
+    wall, launches, gfa, (stats,) = cli_run(
+        workdir, fasta, ["-k", "32", "-m", str(MAIN_FILTER_BITS),
+                         "--membership", "bloom"], device)
     log(f"main: cli wall {wall:.3f} s; stages (s): "
         + json.dumps(stats["stages"]))
     log("main: peak device memory per stage (bytes): "
         + json.dumps(stats.get("peak_bytes", {})))
+    n_s, n_jun, _, _, _ = check_quality(gfa, genome, "main")
     log(f"main: solid nodes {stats['solid_nodes']}, graph nodes "
-        f"{stats['graph_nodes']}, straights {len(straights)}, junctions "
+        f"{stats['graph_nodes']}, straights {n_s}, junctions "
         f"{n_jun}, closure rounds {stats['closure_rounds']}")
-    log(f"main: straight length sum {total} "
-        f"({total / genome_len:.4f} of the genome), N50 {n50(lengths)}, "
-        f"exact-substring share {exact / max(total, 1):.4f}")
     log(f"main: bloom_set_bits launches {launches}")
     if device == "cuda" and launches < 1:
         raise AssertionError("the main run never launched bloom_set_bits")
-    if total < 0.9 * genome_len:
-        raise AssertionError(f"straights cover {total} < 0.9 x {genome_len}")
-    if exact < 0.9 * total:
-        raise AssertionError(f"only {exact} of {total} straight bases are "
-                             f"exact genome substrings")
     return launches
+
+
+def multik_run(workdir: Path, genome: str, fasta: Path,
+               pop_bubbles: bool = True, device: str = "cuda"):
+    """Multi-k with simplification in a 2^33-bit filter through the CLI;
+    one ``bloom_set_bits`` launch a round.  With bubbles popped the exact
+    share is printed, not held (the reference's bubble rule, ROADMAP.md
+    Queue 3).  Returns (launches, exact-substring share)."""
+    what = "multi-k" if pop_bubbles else "multi-k without bubble popping"
+    wall, launches, gfa, rounds = cli_run(
+        workdir, fasta, ["--k-list", ",".join(map(str, MULTIK_K_LIST)),
+                         "--clip-tips",
+                         *(["--pop-bubbles"] if pop_bubbles else []), "-m",
+                         str(MULTIK_FILTER_BITS), "--membership", "bloom"],
+        device)
+    log(f"{what}: cli wall {wall:.3f} s, bloom_set_bits launches "
+        f"{launches}")
+    for st in rounds:
+        log(f"{what} k={st['k']}: solid nodes {st['solid_nodes']}, graph "
+            f"nodes {st['graph_nodes']}, straights {st['straights']}, "
+            f"junctions {st['junctions']}, N50 {st['straight_n50']}, "
+            f"simplify drops {st['simplify_drops']}, closure rounds "
+            f"{st['closure_rounds']}, elapsed {st['elapsed_s']:.3f} s")
+        log(f"{what} k={st['k']}: stages (s) " + json.dumps(st["stages"]))
+        log(f"{what} k={st['k']}: peak device memory per stage (bytes) "
+            + json.dumps(st.get("peak_bytes", {})))
+    if [st["k"] for st in rounds] != list(MULTIK_K_LIST):
+        raise AssertionError(f"{what} ran rounds "
+                             f"{[st['k'] for st in rounds]}")
+    share = check_quality(gfa, genome, what, hold_exact=not pop_bubbles)[4]
+    if device == "cuda" and launches != len(MULTIK_K_LIST):
+        raise AssertionError(f"{what}: {launches} bloom_set_bits launches, "
+                             f"not one a round")
+    return launches, share
 
 
 def main() -> int:
@@ -568,13 +719,7 @@ def main() -> int:
         f"max_abs_err {small[0]}, kernel {small[1]:.4f} ms, "
         f"plain {small[2]:.4f} ms")
     rows = _graph_cap(GENOME_LEN)
-    big = kernel_vs_plain(rows, GENOME_LEN, 32, 30, MAIN_HASHES, seed=2,
-                          reps=10)
-    log(f"kernel main shape ({rows} rows, {GENOME_LEN} masked in, k=32, "
-        f"2^30 bits, {MAIN_HASHES} hashes): max_abs_err {big[0]}, "
-        f"kernel {big[1]:.4f} ms, plain {big[2]:.4f} ms, bound "
-        f"{big[3]:.4f} ms")
-    log(f"kernel main shape passes: {fmt_passes(big[4])}")
+    bloom_shapes = bloom_main_shapes(rows)
     sizes_err = bloom_sizes_check()
     log(f"kernel at 2^{BLOOM_CHECK_LOG2_BITS} bits (200000 rows, k=25, 4 "
         f"hashes, twice onto the same filter): bit-equal, inputs intact")
@@ -585,6 +730,13 @@ def main() -> int:
         f"{par.stats['solid_nodes']} solid -> {par.num_nodes} nodes after "
         f"{par.stats['closure_rounds']} closure rounds) in "
         f"{time.time() - t:.1f} s")
+    t = time.time()
+    mk = multik_parity_run()
+    log(f"multi-k parity (k=32,64, tips and bubbles, 2^32 bits): GPU and "
+        f"CPU GFA identical ({len(mk.gfa_lines)} lines, {mk.num_straights} "
+        f"straights, {mk.stats['simplify_drops']} unitigs dropped in the "
+        f"last round) in {time.time() - t:.1f} s")
+    torch.cuda.empty_cache()
 
     genome, reads, arrays = main_reads()
     oa_launches, oa_err, oa = oa_phase(arrays)
@@ -597,22 +749,55 @@ def main() -> int:
                              f"bloom_blocked_set_bits {bb_launches}")
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches = main_run(Path(tmp), genome, reads)
+        fasta = Path(tmp) / "reads.fasta"
+        with open(fasta, "w") as f:
+            for i, r in enumerate(reads):
+                f.write(f">r{i}\n{r}\n")
+        del reads
+        launches = main_run(Path(tmp), genome, fasta)
+        torch.cuda.empty_cache()
+        mk_launches, mk_share = multik_run(Path(tmp), genome, fasta)
+        torch.cuda.empty_cache()
+        wit_launches, wit_share = multik_run(Path(tmp), genome, fasta,
+                                             pop_bubbles=False)
+    log(f"multi-k: exact-substring share {mk_share:.4f} with bubbles popped "
+        f"by the JAX package's rule, {wit_share:.4f} without bubble popping; "
+        f"the rule pops tandem arrays' loop arms, a known fault of the "
+        f"reference (ROADMAP.md Queue 3)")
+    log(f"bloom_set_bits launches: main run {launches}, multi-k run "
+        f"{mk_launches}, multi-k without bubble popping {wit_launches}")
 
-    short, blocked = oa[SHORT_K], bb[BLOCKED_LOG2_BITS[0]]
-    log(json.dumps({"kernels": [
-        kernel_entry("bloom_set_bits", BLOOM_SOURCE,
-                     "platanus3_tpu/ops/bloom_pallas.py:53", launches,
-                     max(small[0], big[0], sizes_err), big[1], big[2],
-                     big[3]),
-        kernel_entry("oa_count_insert", OA_SOURCE,
-                     "platanus3_tpu/ops/count_pallas.py:97", oa_launches,
-                     oa_err, short["ms"], short["plain_ms"],
-                     short["bound_ms"], short["unique_ms"]),
-        kernel_entry("bloom_blocked_set_bits", BLOOM_SOURCE,
-                     "platanus3_tpu/ops/bloom_pallas.py:189", bb_launches,
-                     bb_err, blocked["ms"], blocked["plain_ms"],
-                     blocked["bound_ms"])]}))
+    main_bloom = bloom_shapes[0]
+    bloom_entry = kernel_entry(
+        "bloom_set_bits", BLOOM_SOURCE,
+        "platanus3_tpu/ops/bloom_pallas.py:53",
+        launches + mk_launches + wit_launches,
+        max([small[0], sizes_err] + [b["max_abs_err"] for b in bloom_shapes]),
+        main_bloom["ms"], main_bloom["plain_ms"], main_bloom["bound_ms"])
+    bloom_entry["shapes"] = [{key: b[key] for key in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+        for b in bloom_shapes]
+    short = oa[SHORT_K]
+    oa_entry = kernel_entry(
+        "oa_count_insert", OA_SOURCE, "platanus3_tpu/ops/count_pallas.py:97",
+        oa_launches, oa_err, short["ms"], short["plain_ms"],
+        short["bound_ms"], short["unique_ms"])
+    oa_entry["shapes"] = [
+        {"shape": f"{m['rows']} rows, k={kk}, {m['slots']} slots",
+         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+         "library_ms": m["unique_ms"]} for kk, m in oa.items()]
+    blocked = bb[BLOCKED_LOG2_BITS[0]]
+    bb_entry = kernel_entry(
+        "bloom_blocked_set_bits", BLOOM_SOURCE,
+        "platanus3_tpu/ops/bloom_pallas.py:189", bb_launches, bb_err,
+        blocked["ms"], blocked["plain_ms"], blocked["bound_ms"])
+    bb_entry["shapes"] = [
+        {"shape": (f"{m['rows']} rows, k={WIDE_BLOCKED_K}, 2^"
+                   f"{BLOCKED_LOG2_BITS[0]} bits" if key == f"k{WIDE_BLOCKED_K}"
+                   else f"{m['rows']} rows, k={MAIN_K}, 2^{key} bits"),
+         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+         "library_ms": None} for key, m in bb.items()]
+    log(json.dumps({"kernels": [bloom_entry, oa_entry, bb_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

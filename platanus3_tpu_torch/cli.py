@@ -9,11 +9,11 @@ simplification, mesh).
 Usage (matches ``ShowUsage``, ``src/ShowInfo.cpp:9``):
     python -m platanus3_tpu_torch.cli -i {readfile} -k {kmersize} -t {threads}
 
-Port of ``platanus3_tpu/cli.py`` with the same flags plus ``--device``.
-Flags of parts not ported yet (``--mesh``, ``--streaming``, ``--k-list``
-with several k, ``--clip-tips``, ``--pop-bubbles``, ``--checkpoint-dir``,
-``--trace-dir``) raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+Port of ``platanus3_tpu/cli.py`` with the same flags plus ``--device``;
+``--k-list`` with several k runs ``graph/multik.assemble_multik``.  Flags
+of parts not ported yet (``--mesh``, ``--streaming``,
+``--checkpoint-dir``, ``--trace-dir``) raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -107,10 +107,10 @@ def main(argv=None):
 
     if args.mesh:
         raise NotImplementedError("--mesh: sharding is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8)")
+                                  "(ROADMAP.md Queue 1 item 4)")
     if args.streaming:
         raise NotImplementedError("--streaming is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 7)")
+                                  "(ROADMAP.md Queue 1 item 3)")
 
     from platanus3_tpu_torch.config import AssemblyConfig
     from platanus3_tpu_torch.pipeline import assemble
@@ -142,7 +142,12 @@ def main(argv=None):
         profile_stages=args.profile_stages,
     )
     log = PipelineLog(cfg.log_path, echo=args.echo_log)
-    res = assemble(args.readfile, cfg, log=log, device=args.device)
+    if len(k_list) > 1:
+        from platanus3_tpu_torch.graph.multik import assemble_multik
+        res = assemble_multik(args.readfile, cfg, log=log,
+                              device=args.device)
+    else:
+        res = assemble(args.readfile, cfg, log=log, device=args.device)
     print(f"wrote {cfg.gfa_path}: {res.num_straights} straights, "
           f"{res.num_junctions} junctions")
     if args.fasta_out:

@@ -2,10 +2,12 @@
 //
 // bloom_set_bits replaces platanus3_tpu/ops/bloom_pallas.py::_set_bits_kernel
 // (driven by build_packed_bloom).  It computes the same packed words as
-// platanus3_tpu/ops/bloom.py::bloom_add: for each masked-in k-mer and each
-// n < num_hashes, bit (p & 31) of word (p >> 5) is set, where
-// p = (h1 + n*h2) mod 2^log2_bits and (h1, h2) is the murmur double hash of
-// hash.cuh, in native uint32 arithmetic.
+// platanus3_tpu/ops/bloom.py::bloom_add, at any k and up to 2^35 bits: for
+// each masked-in k-mer and each n < num_hashes, bit (p & 31) of word
+// (p >> 5) is set, where p = (h1 + n*h2) mod 2^log2_bits below 2^32 bits
+// and p = hi << 32 | (h1 + n*h2) mod 2^32 with hi = (h3 + n*h4) mod
+// 2^(log2_bits - 32) from there on; h1..h4 are the murmur hashes of
+// hash.cuh over all the row's lanes, in native uint32 arithmetic.
 //
 // bloom_blocked_set_bits replaces bloom_pallas.py::_blocked_kernel (driven
 // by build_blocked_bloom).  The top log2_blocks bits of h1 pick one
@@ -79,8 +81,15 @@ constexpr int kRegionThreads = 512;
 // The partition's rows: each masked-in row's num_hashes probes, bucketed
 // by region.  A probe's item is its offset inside its top bucket of
 // regions (region_bits_log2 + sub_log2 bits); the refine keeps the offset
-// inside its region.
-struct BloomRows {
+// inside its region.  Every lane of a row is hashed (hashing.hash_kmers).
+//
+// PackedRows: one or two lanes below 2^32 bits (k <= 32, the main run).
+// load() reads the row as one packed value, so for_each_loaded issues the
+// lane loads of its unrolled rows together, and a probe is
+// (h1 + n*h2) mod 2^log2_bits.  On the H100 this is 0.04 ms (4 %) faster
+// at k = 32, 2^30 bits than BloomRows<false>, which reads the lanes in
+// items() (PERF.md).
+struct PackedRows {
   using Item = uint32_t;
   const int64_t* kmers;
   const uint8_t* mask;
@@ -106,13 +115,69 @@ struct BloomRows {
   }
 
   template <class F>
-  __device__ __forceinline__ void items(const Row& row, F&& f) const {
+  __device__ __forceinline__ void items(int64_t, const Row& row, F&& f) const {
     if (row.flag == 0) return;
     const uint32_t h1 = p3::hash_packed(row.key, lanes, init1);
     const uint32_t h2 = p3::hash_packed(row.key, lanes, init2) | 1u;
     for (int n = 0; n < num_hashes; ++n) {
       const uint32_t p = (h1 + static_cast<uint32_t>(n) * h2) & pos_mask;
       f(p >> region_bits_log2, p & top_offset_mask);
+    }
+  }
+};
+
+// BloomRows: any lane count, any size.  items() hashes the row from its
+// lanes.  Without kWide (below 2^32 bits) a probe is as in PackedRows.
+// With kWide it is the wide position of hashing.probe_positions_wide,
+// hi << 32 | lo with lo = h1 + n*h2 and hi = (h3 + n*h4) mod
+// 2^(log2_bits - 32): the region is at most 16 bits (2^35 bits in regions
+// of 2^19) and the offset inside a top bucket at most 27, so both stay
+// uint32.  Narrow and wide are two instantiations, so that the narrow one
+// carries and hashes two seeds only.
+template <bool kWide>
+struct BloomRows {
+  static constexpr int kHashes = kWide ? 4 : 2;
+  using Item = uint32_t;
+  const int64_t* kmers;
+  const uint8_t* mask;
+  int64_t rows;
+  int lanes;
+  uint32_t init[kHashes];
+  int num_hashes;
+  // Narrow: 2^log2_bits - 1.  Wide: 2^(log2_bits - 32) - 1, the hi mask.
+  uint32_t pos_mask;
+  int region_bits_log2;
+  uint32_t top_offset_mask;
+
+  __host__ __device__ int per_row() const { return num_hashes; }
+
+  struct Row {
+    uint8_t flag;
+  };
+
+  __device__ __forceinline__ Row load(int64_t i) const {
+    return Row{mask != nullptr ? mask[i] : uint8_t{1}};
+  }
+
+  template <class F>
+  __device__ __forceinline__ void items(int64_t i, const Row& row,
+                                        F&& f) const {
+    if (row.flag == 0) return;
+    uint32_t h[kHashes];
+    p3::hash_row_n<kHashes>(kmers + i * lanes, lanes, init, h);
+    const uint32_t h2 = h[1] | 1u;
+    for (int n = 0; n < num_hashes; ++n) {
+      const uint32_t lo = h[0] + static_cast<uint32_t>(n) * h2;
+      if constexpr (!kWide) {
+        const uint32_t p = lo & pos_mask;
+        f(p >> region_bits_log2, p & top_offset_mask);
+      } else {
+        const uint32_t hi =
+            (h[2] + static_cast<uint32_t>(n) * h[3]) & pos_mask;
+        const unsigned long long p =
+            (static_cast<unsigned long long>(hi) << 32) | lo;
+        f(static_cast<uint32_t>(p >> region_bits_log2), lo & top_offset_mask);
+      }
     }
   }
 };
@@ -128,14 +193,31 @@ struct BloomRefine {
   }
 };
 
-BloomRows bloom_rows(const void* kmers, const void* mask, long long rows,
-                     int lanes, unsigned int init1, unsigned int init2,
-                     int num_hashes, unsigned int pos_mask,
-                     int region_bits_log2, int sub_log2) {
-  return BloomRows{static_cast<const int64_t*>(kmers),
-                   static_cast<const uint8_t*>(mask), rows, lanes, init1,
-                   init2, num_hashes, pos_mask, region_bits_log2,
-                   (1u << (region_bits_log2 + sub_log2)) - 1u};
+// Calls launch(rows) with the rows policy that fits `lanes` and
+// `log2_bits`, and returns its result.
+template <class Launch>
+int with_bloom_rows(const void* kmers, const void* mask, long long rows,
+                    int lanes, const unsigned int* init, int num_hashes,
+                    int log2_bits, int region_bits_log2, int sub_log2,
+                    Launch&& launch) {
+  const auto* k = static_cast<const int64_t*>(kmers);
+  const auto* m = static_cast<const uint8_t*>(mask);
+  const uint32_t top_offset_mask = (1u << (region_bits_log2 + sub_log2)) - 1u;
+  if (log2_bits < 32 && lanes <= 2) {
+    return launch(PackedRows{
+        k, m, rows, lanes, init[0], init[1], num_hashes,
+        static_cast<uint32_t>((1ull << log2_bits) - 1u), region_bits_log2,
+        top_offset_mask});
+  }
+  if (log2_bits < 32) {
+    return launch(BloomRows<false>{
+        k, m, rows, lanes, {init[0], init[1]}, num_hashes,
+        static_cast<uint32_t>((1ull << log2_bits) - 1u), region_bits_log2,
+        top_offset_mask});
+  }
+  return launch(BloomRows<true>{
+      k, m, rows, lanes, {init[0], init[1], init[2], init[3]}, num_hashes,
+      (1u << (log2_bits - 32)) - 1u, region_bits_log2, top_offset_mask});
 }
 
 // Region OR: one CTA per region ORs the region's probes onto its words.
@@ -195,7 +277,8 @@ struct BlockedRows {
   }
 
   template <class F>
-  __device__ __forceinline__ void items(const Row& row, F&& f) const {
+  __device__ __forceinline__ void items(int64_t, const Row& row,
+                                        F&& f) const {
     if (row.flag == 0) return;
     const uint32_t blk = log2_blocks > 0 ? row.h1 >> (32 - log2_blocks) : 0u;
     f(blk, (row.h1 & kBlockBitsMask) |
@@ -262,24 +345,29 @@ __global__ void __launch_bounds__(kRegionThreads)
 // bloom_set_bits runs as four passes, each launched on `stream` by its
 // own call so that the wrapper can scan the counts in between; each
 // returns cudaGetLastError() of its launch (0 = ok).  `mask` may be null
-// (every row is inserted).  Probe positions are p & pos_mask; region r
-// holds positions [r, r + 1) << region_bits_log2, and there are
-// 2^(top_log2 + sub_log2) regions (partition.cuh).  `ctas` must be the same
-// in the count and the scatter.
+// (every row is inserted).  `init1`..`init4` start the four hashes
+// (hashing.hash_init of SEED_H1..SEED_H4; the last two only matter from
+// 2^32 bits on).  Region r holds positions [r, r + 1) << region_bits_log2,
+// and there are 2^(top_log2 + sub_log2) regions (partition.cuh).  `ctas`
+// must be the same in the count and the scatter.
 //
 // Count: `hist` ([ctas, 2^top_log2] uint32) gets every CTA's probes per
 // top bucket.
 extern "C" int bloom_partition_count(const void* kmers, const void* mask,
                                      long long rows, int lanes,
                                      unsigned int init1, unsigned int init2,
-                                     int num_hashes, unsigned int pos_mask,
+                                     unsigned int init3, unsigned int init4,
+                                     int num_hashes, int log2_bits,
                                      int region_bits_log2, int top_log2,
                                      int sub_log2, int ctas, void* hist,
                                      void* stream) {
-  return p3::launch_partition_count(
-      bloom_rows(kmers, mask, rows, lanes, init1, init2, num_hashes,
-                 pos_mask, region_bits_log2, sub_log2),
-      top_log2, sub_log2, ctas, hist, static_cast<cudaStream_t>(stream));
+  const unsigned int init[4] = {init1, init2, init3, init4};
+  return with_bloom_rows(
+      kmers, mask, rows, lanes, init, num_hashes, log2_bits,
+      region_bits_log2, sub_log2, [&](const auto& in) {
+        return p3::launch_partition_count(in, top_log2, sub_log2, ctas, hist,
+                                          static_cast<cudaStream_t>(stream));
+      });
 }
 
 // Scatter: `offsets` ([ctas, 2^top_log2] uint64) holds where each CTA's
@@ -288,16 +376,20 @@ extern "C" int bloom_partition_count(const void* kmers, const void* mask,
 extern "C" int bloom_partition_scatter(const void* kmers, const void* mask,
                                        long long rows, int lanes,
                                        unsigned int init1, unsigned int init2,
-                                       int num_hashes, unsigned int pos_mask,
+                                       unsigned int init3, unsigned int init4,
+                                       int num_hashes, int log2_bits,
                                        int region_bits_log2, int top_log2,
                                        int sub_log2, int ctas,
                                        const void* offsets, void* part,
                                        void* stream) {
-  return p3::launch_partition_scatter(
-      bloom_rows(kmers, mask, rows, lanes, init1, init2, num_hashes,
-                 pos_mask, region_bits_log2, sub_log2),
-      top_log2, sub_log2, ctas, offsets, part,
-      static_cast<cudaStream_t>(stream));
+  const unsigned int init[4] = {init1, init2, init3, init4};
+  return with_bloom_rows(
+      kmers, mask, rows, lanes, init, num_hashes, log2_bits,
+      region_bits_log2, sub_log2, [&](const auto& in) {
+        return p3::launch_partition_scatter(
+            in, top_log2, sub_log2, ctas, offsets, part,
+            static_cast<cudaStream_t>(stream));
+      });
 }
 
 // Refine: `top_start` ([2^top_log2 + 1] int64) bounds each top bucket's

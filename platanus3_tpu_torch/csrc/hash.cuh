@@ -65,6 +65,25 @@ __device__ __forceinline__ uint32_t hash_packed(unsigned long long key,
   return fmix32(h ^ static_cast<uint32_t>(4 * lanes));
 }
 
+// The N hashes of one row with the starts init[0..N), in one pass over its
+// lanes (each lane read once).
+template <int N>
+__device__ __forceinline__ void hash_row_n(const int64_t* row, int lanes,
+                                           const uint32_t* init,
+                                           uint32_t* h) {
+#pragma unroll
+  for (int s = 0; s < N; ++s) h[s] = init[s];
+  for (int j = 0; j < lanes; ++j) {
+    const uint32_t lane = static_cast<uint32_t>(row[j]);
+#pragma unroll
+    for (int s = 0; s < N; ++s) h[s] = mix_lane(h[s], lane);
+  }
+#pragma unroll
+  for (int s = 0; s < N; ++s) {
+    h[s] = fmix32(h[s] ^ static_cast<uint32_t>(4 * lanes));
+  }
+}
+
 // hashing.double_hash: (h1, h2) with h2 odd.
 __device__ __forceinline__ void double_hash_row(const int64_t* row, int lanes,
                                                 uint32_t init1,

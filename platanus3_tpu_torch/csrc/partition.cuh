@@ -29,7 +29,7 @@
 // tile's items, or one top bucket's items of a sub-bucket.
 //
 // A Rows policy reads input row i with load(i), a `Row`, and gives its
-// items with items(row, f), calling f(bucket, item) for each: `Item` is the
+// items with items(i, row, f), calling f(bucket, item) for each: `Item` is the
 // item's type, `rows` the row count, `per_row()` the most items a row has.  A Refine policy gives an item's sub-bucket and
 // the item to store after refining.
 
@@ -205,8 +205,8 @@ __global__ void __launch_bounds__(kPartThreads, 2)
     const int64_t last = min64(first + rows_per, in.rows);
     for_each_loaded(
         first, last, [&](int64_t i) { return in.load(i); },
-        [&](int64_t, const typename Rows::Row& row) {
-          in.items(row, [&](uint32_t bucket, typename Rows::Item) {
+        [&](int64_t i, const typename Rows::Row& row) {
+          in.items(i, row, [&](uint32_t bucket, typename Rows::Item) {
             atomicAdd(s_hist + (bucket >> sub_log2), 1u);
           });
         });
@@ -238,7 +238,7 @@ __global__ void __launch_bounds__(kPartThreads, 2)
               first, last, [&](int64_t i) { return in.load(i); },
               [&](int64_t i, const typename Rows::Row& row) {
                 int j = static_cast<int>(i - first) * in.per_row();
-                in.items(row, [&](uint32_t bucket, Item item) {
+                in.items(i, row, [&](uint32_t bucket, Item item) {
                   f(j++, bucket >> sub_log2, item);
                 });
               });

@@ -117,10 +117,10 @@ def load_library():
     vp, i, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                     ctypes.c_longlong)
     for name, args in (
-            ("bloom_partition_count", [vp, vp, ll, i, u, u, i, u, i, i, i, i,
-                                       vp, vp]),
-            ("bloom_partition_scatter", [vp, vp, ll, i, u, u, i, u, i, i, i,
-                                         i, vp, vp, vp]),
+            ("bloom_partition_count", [vp, vp, ll, i, u, u, u, u, i, i, i,
+                                       i, i, i, vp, vp]),
+            ("bloom_partition_scatter", [vp, vp, ll, i, u, u, u, u, i, i, i,
+                                         i, i, i, vp, vp, vp]),
             ("bloom_partition_refine", [vp, vp, i, i, i, vp, vp, vp]),
             ("bloom_region_or", [vp, vp, i, i, vp, vp, vp]),
             ("bloom_blocked_partition_count", [vp, vp, ll, i, u, u, i, i, i,
@@ -132,8 +132,8 @@ def load_library():
             ("oa_partition_count", [vp, vp, ll, i, u, i, i, i, vp, vp, vp]),
             ("oa_partition_scatter", [vp, vp, ll, i, u, i, i, i, vp, vp,
                                       vp]),
-            ("oa_partition_refine", [vp, vp, i, u, i, i, vp, vp, vp]),
-            ("oa_block_insert", [vp, vp, i, u, i, vp, vp, vp, vp])):
+            ("oa_partition_refine", [vp, vp, vp, i, u, i, i, vp, vp, vp]),
+            ("oa_block_insert", [vp, vp, vp, i, u, i, vp, vp, vp, vp])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, i
     _lib = lib

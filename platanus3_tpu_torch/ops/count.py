@@ -1,16 +1,21 @@
 """Exact k-mer counting via sort + run reduction.
 
-Port of ``platanus3_tpu/ops/count.py`` for k <= 32 (one or two lanes).
-A k-mer's lanes pack into one 64-bit key, ``lane0 << 32 | lane1``, and the
-whole count is one ``torch.sort`` of those keys:
+Port of ``platanus3_tpu/ops/count.py``, at any k.  A k-mer's ``L`` lanes
+pack into ``W = ceil(L / 2)`` 64-bit words: for odd ``L`` word 0 holds
+lane 0 alone, and every other word holds two lanes, ``lane_a << 32 |
+lane_b``, so one or two lanes are a single word.  Each word's sign bit is
+flipped (the order key), so signed int64 order of the words, most
+significant word first, is the unsigned lexicographic (``CompareBit``)
+order:
 
-* the sort key is the packed value with its sign bit flipped, so signed
-  int64 order equals the unsigned (lexicographic, ``CompareBit``) order;
-* for 2k <= 62 the top of the key range is unused, so invalid rows take
-  the largest int64 and sort last in the same single sort (the JAX
-  package's ``_has_spare_msb`` fold);
-* for k = 32 all 64 bits are used, so invalid rows are moved last by a
-  second, stable sort on the invalid flag.
+* one word (k <= 32): the count is one ``torch.sort`` of the order keys;
+* several words: LSB-first chained stable sorts, one per word, each
+  applied through the permutation so far;
+* invalid rows go last.  Where word 0 never uses its top bit (odd ``L``,
+  or a top lane of fewer than 32 bits: the JAX package's
+  ``_has_spare_msb``), invalid rows take the largest int64 there and sort
+  last in the same passes; otherwise (k = 32, 64, 128, ...) one more
+  stable sort on the invalid flag moves them last.
 
 Node ids are the ranks of canonical k-mers in this order, exactly as in
 the JAX package, so tables and per-position ids compare one to one.
@@ -47,63 +52,73 @@ class KmerTable(NamedTuple):
     size: torch.Tensor
 
 
-def _check_lanes(kmers: torch.Tensor):
-    if kmers.shape[-1] > 2:
-        raise NotImplementedError(
-            f"{kmers.shape[-1]}-lane k-mers (k > 32): multi-word k is not "
-            f"ported yet (ROADMAP.md Queue 1 item 2)")
-
-
 def pack_keys(kmers: torch.Tensor) -> torch.Tensor:
-    """``[..., L]`` lanes (L <= 2) -> ``[...]`` int64 holding the 2k-bit
-    value (wraps to negative when k = 32 and the top bit is set)."""
-    _check_lanes(kmers)
-    if kmers.shape[-1] == 1:
-        return kmers[..., 0].clone()
-    return (kmers[..., 0] << 32) | kmers[..., 1]
+    """``[..., L]`` lanes -> ``[..., W]`` int64 words, ``W = ceil(L/2)``:
+    for odd L word 0 is lane 0, and each other word two lanes, the first
+    in its high half (a full word wraps to negative)."""
+    lanes = kmers.shape[-1]
+    odd = lanes % 2
+    words = [kmers[..., 0]] if odd else []
+    words += [(kmers[..., j] << 32) | kmers[..., j + 1]
+              for j in range(odd, lanes, 2)]
+    return torch.stack(words, dim=-1)
 
 
 def unpack_keys(keys: torch.Tensor, lanes: int) -> torch.Tensor:
-    if lanes == 1:
-        return keys[..., None].clone()
-    return torch.stack([(keys >> 32) & MASK32, keys & MASK32], dim=-1)
+    """Inverse of :func:`pack_keys`: ``[..., W]`` words -> ``[..., L]``."""
+    odd = lanes % 2
+    cols = [keys[..., 0] & MASK32] if odd else []
+    for w in range(odd, keys.shape[-1]):
+        cols += [(keys[..., w] >> 32) & MASK32, keys[..., w] & MASK32]
+    return torch.stack(cols, dim=-1)
 
 
 def order_keys(kmers: torch.Tensor) -> torch.Tensor:
-    """Packed keys whose signed int64 order is the lexicographic order."""
+    """Packed words ``[..., W]`` whose signed int64 order, word 0 first,
+    is the lexicographic order of the lanes."""
     return pack_keys(kmers) ^ _SIGN
 
 
-def _spare_top(k: int | None) -> bool:
-    """True when no valid order key can equal the int64 maximum, so an
-    invalid row can carry it as its sort key (2k <= 62)."""
-    return k is not None and 2 * k <= 62
+def _spare_top(k: int | None, lanes: int) -> bool:
+    """True when no valid order key's word 0 can equal the int64 maximum,
+    so an invalid row can carry it: word 0 is one lane (odd L), or its top
+    lane leaves bit 31 unused (2k not a multiple of 32)."""
+    return k is not None and (lanes % 2 == 1 or (2 * k) % 32 != 0)
 
 
 def sort_kmers(kmers: torch.Tensor, invalid: torch.Tensor,
                k: int | None = None):
     """Order ``[N, L]`` keys lexicographically with invalid rows last.
 
-    Returns ``(s_okey [N], s_invalid [N], perm [N])``: the sorted order
+    Returns ``(s_okey [N, W], s_invalid [N], perm [N])``: the sorted order
     keys, the sorted invalid flags and the permutation (sorted row i is
     input row ``perm[i]``).  Rows with equal keys may come in any order;
     the counting cores read only run aggregates and ``perm``.
     """
     okey = order_keys(kmers)
-    if _spare_top(k):
-        okey = torch.where(invalid, _I64_MAX, okey)
-        s_okey, perm = torch.sort(okey)
-    else:
-        s_okey, perm = torch.sort(okey, stable=True)
-        _, p2 = torch.sort(invalid[perm].to(torch.uint8), stable=True)
-        perm = perm[p2]
-        s_okey = s_okey[p2]
-    return s_okey, invalid[perm], perm
+    words = okey.shape[1]
+    spare = _spare_top(k, kmers.shape[1])
+    if spare:
+        okey[:, 0] = torch.where(invalid, _I64_MAX, okey[:, 0])
+    if words == 1 and spare:
+        s_key, perm = torch.sort(okey[:, 0])
+        return s_key[:, None], invalid[perm], perm
+    # LSB-first: each pass is stable, so it keeps the order of the less
+    # significant words among rows its own word ties.
+    perm = None
+    for w in reversed(range(words)):
+        col = okey[:, w] if perm is None else okey[perm, w]
+        _, p = torch.sort(col, stable=True)
+        perm = p if perm is None else perm[p]
+    if not spare:
+        _, p = torch.sort(invalid[perm].to(torch.uint8), stable=True)
+        perm = perm[p]
+    return okey[perm], invalid[perm], perm
 
 
 def _is_first(s_okey: torch.Tensor, s_invalid: torch.Tensor):
     first = torch.ones_like(s_invalid)
-    first[1:] = ((s_okey[1:] != s_okey[:-1])
+    first[1:] = ((s_okey[1:] != s_okey[:-1]).any(dim=1)
                  | (s_invalid[1:] != s_invalid[:-1]))
     return first
 
@@ -204,21 +219,62 @@ def count_solid_with_ids(kmers: torch.Tensor, valid: torch.Tensor,
 
 
 def _table_order_keys(table: KmerTable) -> torch.Tensor:
-    """Order keys of the table rows, padding rows set to the int64
-    maximum so the whole column stays sorted."""
+    """One-word order keys of the table rows, padding rows set to the
+    int64 maximum so the whole column stays sorted."""
     m = table.keys.shape[0]
     row = torch.arange(m, device=table.keys.device)
-    return torch.where(row < table.size, order_keys(table.keys), _I64_MAX)
+    return torch.where(row < table.size, order_keys(table.keys)[:, 0],
+                       _I64_MAX)
+
+
+def _lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a < b`` over ``[..., W]`` order keys, word 0 first."""
+    less = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    eq = torch.ones_like(less)
+    for w in range(a.shape[-1]):
+        less |= eq & (a[..., w] < b[..., w])
+        eq &= a[..., w] == b[..., w]
+    return less
+
+
+def _lower_bound(tkey: torch.Tensor, size, qkey: torch.Tensor):
+    """First row of the sorted ``tkey [M, W]`` prefix ``[0, size)`` not
+    below each query of ``qkey [Q, W]``: a binary search of all queries at
+    once, ``bit_length(M)`` rounds of one gather each."""
+    m = tkey.shape[0]
+    lo = torch.zeros(qkey.shape[:1], dtype=torch.int64, device=qkey.device)
+    hi = torch.as_tensor(size, dtype=torch.int64,
+                         device=qkey.device).expand_as(lo).clone()
+    for _ in range(max(1, m.bit_length())):
+        mid = (lo + hi) >> 1
+        right = (lo < hi) & _lex_less(tkey[mid.clamp(max=m - 1)], qkey)
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(right, hi, mid)
+    return lo
 
 
 def lookup_id(table: KmerTable, queries: torch.Tensor) -> torch.Tensor:
-    """Row index of each ``[Q, L]`` query in the table, or -1 when absent
-    (a binary search over the packed keys)."""
-    tkey = _table_order_keys(table)
+    """Row index of each ``[Q, L]`` query in the table, or -1 when absent.
+
+    One word (k <= 32): ``searchsorted`` over the packed keys.  Several
+    words: a lexicographic binary search over the ``[M, W]`` order keys
+    (``_lower_bound``), bounded by ``size``.  A search rather than the JAX
+    package's sort-join: it reads the table ``log2(M)`` times at random
+    but sorts nothing, where a join sorts the table and the queries
+    together word by word (``W + 1`` passes over ``M + Q`` rows); and it
+    keeps the queries in their order, so no scatter back."""
     qkey = order_keys(queries)
-    pos = torch.searchsorted(tkey, qkey)
-    pos_c = pos.clamp(max=tkey.shape[0] - 1)
-    hit = (tkey[pos_c] == qkey) & (pos < table.size)
+    m = table.keys.shape[0]
+    if qkey.shape[-1] == 1:
+        tkey = _table_order_keys(table)
+        pos = torch.searchsorted(tkey, qkey[:, 0])
+        pos_c = pos.clamp(max=m - 1)
+        hit = (tkey[pos_c] == qkey[:, 0]) & (pos < table.size)
+        return torch.where(hit, pos_c, -1)
+    tkey = order_keys(table.keys)
+    pos = _lower_bound(tkey, table.size, qkey)
+    pos_c = pos.clamp(max=m - 1)
+    hit = (tkey[pos_c] == qkey).all(dim=1) & (pos < table.size)
     return torch.where(hit, pos_c, -1)
 
 
@@ -226,7 +282,7 @@ def lookup_id_join(table: KmerTable, queries: torch.Tensor,
                    k: int | None = None) -> torch.Tensor:
     """Same ids as :func:`lookup_id`.  The JAX package joins by one sort
     of table and queries (binary-search gathers are slow on a TPU); on a
-    GPU ``searchsorted`` over the packed keys is the direct form."""
+    GPU a binary search over the packed keys is the direct form."""
     return lookup_id(table, queries)
 
 

@@ -1,7 +1,6 @@
 """Exact k-mer count table by open addressing.
 
-Port of ``platanus3_tpu/ops/count_pallas.py`` for k <= 32 (one or two
-lanes).  The table has ``T = 2^g * 8192`` slots in ``2^g`` blocks of
+Port of ``platanus3_tpu/ops/count_pallas.py``, at any k.  The table has ``T = 2^g * 8192`` slots in ``2^g`` blocks of
 8192, with ``g`` from the row count exactly as in the JAX package.  A
 k-mer with hash ``h1`` (``hashing.hash_kmers`` with ``SEED_H1``) lives in
 block ``h1 >> (32 - g)`` (block 0 when ``g = 0``), at the first slot
@@ -13,18 +12,19 @@ wrapping inside its block.  A slot is occupied iff its count is > 0.
 kernel ``count_pallas._insert_kernel``.  On a CUDA tensor it launches the
 kernel; on a CPU tensor it runs the plain PyTorch version,
 ``count_kmers_oa_plain``.  The kernel partitions the rows' packed keys
-by block in two levels (count, scatter and refine passes, with scratch of
+(for rows of more than two lanes, their indices) by block in two levels (count, scatter and refine passes, with scratch of
 two ``rows`` int64 arrays; ``kernels.partition_levels``), then builds
 each block in one CTA's shared memory, which writes every slot of the
 keys and counts once, so the wrapper allocates them unfilled.  Slot
 layout depends on the order of inserts (the kernel's atomics, the JAX
 kernel's hash sort), so tables compare through ``oa_to_sorted``.
 
-Empty marker.  The kernel claims a slot by a compare-and-swap on the
-packed key ``lane0 << 32 | lane1`` against the value with all 64 bits
-set.  That value is never a canonical k-mer: at k = 32 it is T^32, whose
-reverse complement A^32 = 0 is smaller, and at k < 32 it lies outside
-the 2k-bit range.  A contributing row that packs to it is counted in
+Empty marker.  An empty slot holds 0xFFFFFFFF in every lane; for one or
+two lanes the kernel claims a slot by a compare-and-swap on the packed
+key ``lane0 << 32 | lane1`` against the value with all 64 bits set.  That
+key is never a canonical k-mer: where the top lane is full it is T^k,
+whose reverse complement A^k = 0 is smaller, and otherwise it lies
+outside the 2k-bit range.  A contributing row equal to it is counted in
 ``overflow`` by both versions, never dropped silently.
 
 Overflow.  On the card only a row whose block's 8192 slots are all taken
@@ -52,7 +52,6 @@ TB_LOG2 = 13
 TB = 1 << TB_LOG2
 # Target load factor per block (the JAX sizing rule's 4096 rows a block).
 LOAD = 0.5
-_EMPTY = -1  # the packed key with all 64 bits set, as a signed int64
 
 
 class OAHashTable(NamedTuple):
@@ -80,7 +79,6 @@ def _check_args(kmers: torch.Tensor, contrib: torch.Tensor, k: int):
     if kmers.dtype != torch.int64 or kmers.dim() != 2:
         raise TypeError(f"k-mers must be [N, L] int64, got "
                         f"{tuple(kmers.shape)} {kmers.dtype}")
-    count_mod._check_lanes(kmers)
     lanes = (k + 15) // 16
     if kmers.shape[1] != lanes:
         raise ValueError(f"k={k} needs {lanes} lanes, got {kmers.shape[1]}")
@@ -112,14 +110,21 @@ def count_kmers_oa_plain(kmers: torch.Tensor, contrib: torch.Tensor,
     dev = kmers.device
     g = table_log2_blocks(n)
     t = TB << g
-    packed = count_mod.pack_keys(kmers[contrib])
-    overflow = (packed == _EMPTY).sum()
-    uniq, rows = torch.unique(packed[packed != _EMPTY], return_counts=True)
+    rows_in = kmers[contrib]
+    empty = (rows_in == MASK32).all(dim=1)
+    overflow = empty.sum()
+    packed = count_mod.pack_keys(rows_in[~empty])
+    del rows_in
+    if packed.shape[1] == 1:
+        uniq, rows = torch.unique(packed[:, 0], return_counts=True)
+        uniq = uniq[:, None]
+    else:
+        uniq, rows = torch.unique(packed, dim=0, return_counts=True)
+    uniq = count_mod.unpack_keys(uniq, lanes)
 
-    h1 = hashing.hash_kmers(count_mod.unpack_keys(uniq, lanes), k,
-                            hashing.SEED_H1)
+    h1 = hashing.hash_kmers(uniq, k, hashing.SEED_H1)
     base, home = _block_and_home(h1, g)
-    slot_key = torch.full((t,), _EMPTY, dtype=torch.int64, device=dev)
+    owner = torch.full((t,), -1, dtype=torch.int64, device=dev)
     counts = torch.zeros((t,), dtype=torch.int32, device=dev)
     todo = torch.arange(uniq.shape[0], device=dev)
     step = torch.zeros_like(todo)
@@ -127,18 +132,20 @@ def count_kmers_oa_plain(kmers: torch.Tensor, contrib: torch.Tensor,
     winner = torch.full((t,), nobody, dtype=torch.int64, device=dev)
     while todo.numel():
         slot = base[todo] + ((home[todo] + step) & (TB - 1))
-        free = slot_key[slot] == _EMPTY
+        free = owner[slot] < 0
         winner.scatter_reduce_(0, slot[free], todo[free], reduce="amin")
         won = free & (winner[slot] == todo)
         winner[slot[free]] = nobody
-        slot_key[slot[won]] = uniq[todo[won]]
+        owner[slot[won]] = todo[won]
         counts[slot[won]] = rows[todo[won]].to(torch.int32)
         step = step + 1
         keep = ~won & (step < TB)
         overflow = overflow + rows[todo[~won & (step == TB)]].sum()
         todo, step = todo[keep], step[keep]
 
-    keys = count_mod.unpack_keys(slot_key, lanes) & MASK32
+    keys = torch.full((t, lanes), MASK32, dtype=torch.int64, device=dev)
+    occupied = owner >= 0
+    keys[occupied] = uniq[owner[occupied]]
     return OAHashTable(keys=keys.T.contiguous(), counts=counts,
                        overflow=overflow.to(torch.int64))
 
@@ -170,15 +177,15 @@ def oa_passes(kmers: torch.Tensor, contrib: torch.Tensor, k: int):
     blocked = torch.empty_like(part)
     start = torch.empty(((1 << g) + 1,), dtype=torch.int64, device=dev)
     kernels.launch(dev, lib.oa_partition_refine, part.data_ptr(),
-                   top_start.data_ptr(), lanes, init1, top_log2, sub_log2,
-                   blocked.data_ptr(), start.data_ptr())
+                   top_start.data_ptr(), kmers.data_ptr(), lanes, init1,
+                   top_log2, sub_log2, blocked.data_ptr(), start.data_ptr())
     del part
     yield "partition refine"
     keys = torch.empty((lanes, TB << g), dtype=torch.int64, device=dev)
     counts = torch.empty((TB << g,), dtype=torch.int32, device=dev)
     kernels.launch(dev, lib.oa_block_insert, blocked.data_ptr(),
-                   start.data_ptr(), lanes, init1, g, keys.data_ptr(),
-                   counts.data_ptr(), overflow.data_ptr())
+                   start.data_ptr(), kmers.data_ptr(), lanes, init1, g,
+                   keys.data_ptr(), counts.data_ptr(), overflow.data_ptr())
     yield "block insert"
     count_kmers_oa.kernel_launches += 1
     return OAHashTable(keys=keys, counts=counts, overflow=overflow)

@@ -18,8 +18,9 @@ import torch
 from platanus3_tpu_torch.constants import num_lanes
 from platanus3_tpu_torch.ops.kmer import MASK32
 
-__all__ = ["hash_kmers", "double_hash", "probe_positions", "hash_init",
-           "SEED_H1", "SEED_H2"]
+__all__ = ["hash_kmers", "double_hash", "probe_positions",
+           "probe_positions_wide", "hash_init", "SEED_H1", "SEED_H2",
+           "SEED_H3", "SEED_H4"]
 
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
@@ -28,6 +29,9 @@ _MIX2 = 0xC2B2AE35
 
 SEED_H1 = 0x8C5FB1F7
 SEED_H2 = 0x27D4EB2F
+# The second double-hash pair of the wide (>= 2^32-bit) Bloom positions.
+SEED_H3 = 0x94D049BB
+SEED_H4 = 0xBF58476D
 
 
 def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -76,3 +80,22 @@ def probe_positions(h1: torch.Tensor, h2: torch.Tensor, num_hashes: int,
     n = torch.arange(num_hashes, dtype=torch.int64, device=h1.device)
     n = n.reshape((num_hashes,) + (1,) * h1.dim())
     return (h1[None] + n * h2[None]) & ((1 << log2_bits) - 1)
+
+
+def probe_positions_wide(kmers: torch.Tensor, k: int, num_hashes: int,
+                         log2_bits: int, lo_bits: int = 32):
+    """Probe positions of a filter of ``2^log2_bits >= 2^lo_bits`` bits as
+    ``(hi, lo)``, each ``[num_hashes, ...]``; the position is
+    ``hi * 2^lo_bits + lo``.  ``lo`` follows the double hash of
+    :func:`probe_positions`, ``hi`` a second pair seeded with ``SEED_H3``
+    and ``SEED_H4``.  ``lo_bits`` is 32 in production; tests shrink it to
+    drive the path on a small filter."""
+    assert log2_bits >= lo_bits
+    h1, h2 = double_hash(kmers, k)
+    h3 = hash_kmers(kmers, k, seed=SEED_H3)
+    h4 = hash_kmers(kmers, k, seed=SEED_H4)
+    n = torch.arange(num_hashes, dtype=torch.int64, device=h1.device)
+    n = n.reshape((num_hashes,) + (1,) * h1.dim())
+    lo = (h1[None] + n * h2[None]) & ((1 << lo_bits) - 1)
+    hi = (h3[None] + n * h4[None]) & ((1 << (log2_bits - lo_bits)) - 1)
+    return hi, lo

@@ -1,11 +1,13 @@
 """End-to-end single-shot assembly pipeline.
 
-Port of ``platanus3_tpu/pipeline.py`` (single-shot ``assemble``), with
-the same stage boundaries and capacities, so that every array compares
-one to one with the JAX package:
+Port of ``platanus3_tpu/pipeline.py`` (single-shot ``assemble``, at any
+k), with the same stage boundaries and capacities, so that every array
+compares one to one with the JAX package:
 
   stage 1 (device): short-k count -> window-min solidity -> solid node
-            table, per-position node ids, per-read seed k-mers
+            table, per-position node ids, per-read seed k-mers; with
+            ``extra_solid`` (multi-k re-seeding, ``graph/multik.py``) the
+            k-mers of those sequences are merged into the table
   compaction: the node table is cut to ``_graph_cap(num_nodes)`` rows
   Bloom build (Bloom membership only): the distinct nodes go into the
             packed filter through ``ops/bloom.bloom_add`` -- on a GPU the
@@ -13,11 +15,14 @@ one to one with the JAX package:
   stage 2 (device): graph decomposition; in Bloom mode the closure adds
             filter-positive neighbour k-mers as nodes and rebuilds
   stage 3 (device): coverage, junction tallies, seed reachability
+  simplification (``clip_tips`` / ``pop_bubbles``): tips and bubbles
+            are chosen on the host (``graph/simplify.py``), the graph is
+            rebuilt without them with exact membership, and stage 3 runs
+            again, for ``simplify_rounds`` rounds or to the fixpoint
   stage 4 (device -> host): emission packs, GFA rendering
 
 Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` Queue 1 item: the wide Bloom path, k > 32, simplification,
-multi-k and ``extra_solid``, checkpoints, the mesh, tracing (streaming
+``ROADMAP.md`` Queue 1 item: checkpoints, the mesh, tracing (streaming
 is a separate entry point, ``--streaming`` in the CLI).
 The TPU-only staged paths are not ported at all.
 """
@@ -38,6 +43,7 @@ from platanus3_tpu_torch.graph import coverage as cov_mod
 from platanus3_tpu_torch.graph import emit as emit_mod
 from platanus3_tpu_torch.graph import reach as reach_mod
 from platanus3_tpu_torch.graph import sequence as seq_mod
+from platanus3_tpu_torch.graph import simplify as simp_mod
 from platanus3_tpu_torch.io import gfa as gfa_mod
 from platanus3_tpu_torch.io import reads as reads_mod
 from platanus3_tpu_torch.ops import bloom as bloom_mod
@@ -68,17 +74,11 @@ class AssemblyResult:
 
 def _unsupported(config: AssemblyConfig):
     """The first option of ``config`` the port does not run yet."""
-    if config.k > 32:
-        return "k > 32 (multi-word k, ROADMAP.md Queue 1 item 2)"
-    if config.clip_tips or config.pop_bubbles:
-        return "graph simplification (ROADMAP.md Queue 1 item 3)"
-    if len(config.k_list) > 1:
-        return "multi-k (ROADMAP.md Queue 1 item 4)"
     if config.checkpoint_dir:
-        return "checkpoints (ROADMAP.md Queue 1 item 6)"
+        return "checkpoints (ROADMAP.md Queue 1 item 2)"
     if config.trace_dir:
         return "trace_dir: no torch.profiler trace yet (ROADMAP.md Queue 1 " \
-               "item 13)"
+               "item 9)"
     return None
 
 
@@ -97,6 +97,29 @@ def _stage1(packed, valid_len, read_id, start, read_len, cov_threshold, *,
         (result.is_solid & result.owned).reshape(-1), k=k,
         want_counts=False)
     return node_table, seed_fw, has_seed, nid.reshape(c, pk)
+
+
+def _extra_solid_table(seqs, config, device):
+    """K-mer table and seed k-mers of sequences taken as solid whatever
+    their read coverage (multi-k re-seeding, ``graph/multik.py``): every
+    k-mer of ``seqs`` becomes a node.  Returns ``(KmerTable, seed_fw)``."""
+    k = config.k
+    eb = reads_mod.reads_from_strings(seqs, k, config.chunk_len)
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
+
+    bases = kmer_mod.unpack_bases(dev(eb.packed))
+    fw, valid = kmer_mod.extract_kmers(bases, dev(eb.valid_len), k)
+    canon, _ = kmer_mod.canonical(fw, k)
+    pk = fw.shape[1]
+    del fw, bases
+    owned = solid_mod.owned_mask(dev(eb.start), dev(eb.read_len), eb.stride,
+                                 pk, k, k) & valid
+    l = canon.shape[-1]
+    tab = count_mod.count_kmers(canon.reshape(-1, l), owned.reshape(-1), k=k)
+    seed = dev(kmer_mod.encode_kmers_np([s[:k] for s in seqs if len(s) >= k]))
+    return tab, seed
 
 
 def _bloom_from_nodes(nodes, size, bf, *, k):
@@ -120,6 +143,17 @@ def _stage3(dbg, packed, valid_len, start, read_len, prev_base, next_base,
     reach_jun, reach_uni = reach_mod.reachable(dbg, seed_fw, has_seed, k)
     chars = seq_mod.member_chars(dbg, k)
     return cov, reach_jun, reach_uni, chars
+
+
+def _n50(lengths) -> int:
+    """The largest length L such that sequences of length >= L hold at
+    least half of the total."""
+    total, acc = sum(lengths), 0
+    for x in sorted(lengths, reverse=True):
+        acc += x
+        if 2 * acc >= total:
+            return x
+    return 0
 
 
 def _next_pow2(n: int) -> int:
@@ -178,6 +212,55 @@ def _expand_bloom_closure(dbg, nodes, size, bf, config, log):
     return dbg, nodes, size, grown
 
 
+# The DBG leaves the simplification decision reads on the host.
+_SIMPLIFY_LEAVES = ("size", "left_present", "right_present",
+                    "node_state_uid", "state_next_id", "state_next_o",
+                    "unitig_head", "unitig_tail", "unitig_len",
+                    "unitig_circular", "num_unitigs")
+
+
+def _simplify(dbg, stage3, nid, bf, config, log, run_stage3, timer):
+    """Tip clipping / bubble popping rounds after stage 3 (``stage3`` is
+    its outputs): the drop decision on the host
+    (``graph/simplify.decide_drops``), then the graph rebuilt from the
+    kept nodes with EXACT membership (after a deletion the Bloom filter no
+    longer describes the node set) and stage 3 run again.  Kept nodes keep
+    their lexicographic order, so stage 1's node ids remap by rank among
+    the kept rows.  Each round's parts are spans of ``timer``:
+    ``simplify.to_host`` (the DBG leaves and coverage to numpy),
+    ``simplify.decide``, ``simplify.stage2`` (the kept keys and the
+    rebuild) and ``simplify.stage3``.  Returns ``(dbg, stage-3 outputs,
+    unitigs dropped)``."""
+    rounds = config.simplify_rounds if config.simplify_rounds > 0 else 100
+    dropped = 0
+    for rnd in range(rounds):
+        dbg_np = dbg._replace(**{f: getattr(dbg, f).cpu().numpy()
+                                 for f in _SIMPLIFY_LEAVES})
+        node_cov = stage3[0].node_cov.cpu().numpy()
+        timer.part("simplify.to_host")
+        keep, n_drop = simp_mod.decide_drops(dbg_np, node_cov, config)
+        timer.part("simplify.decide")
+        if keep is None:
+            break
+        dropped += n_drop
+        keep = torch.from_numpy(keep).to(dbg.nodes.device)
+        kept = dbg.nodes[keep]
+        n_keep = kept.shape[0]
+        nodes = _pad_table_keys(kept, n_keep, _graph_cap(n_keep))
+        size = torch.tensor(n_keep, dtype=torch.int64, device=nodes.device)
+        del dbg, kept, stage3
+        dbg = run_stage2(nodes, size, bf, k=config.k, use_exact=True)
+        timer.part("simplify.stage2")
+        if nid is not None:
+            remap = torch.where(keep, torch.cumsum(keep, 0) - 1, -1)
+            nid = torch.where(nid >= 0, remap[nid.clamp(min=0)], -1)
+        stage3 = run_stage3(dbg, nid)
+        timer.part("simplify.stage3")
+        log.write(f"simplify round {rnd + 1}: dropped {n_drop} unitigs, "
+                  f"{n_keep} nodes left")
+    return dbg, stage3, dropped
+
+
 def _emit_output(dbg, cov, reach_jun, reach_uni, chars, k):
     """Stage 4: compact emission packs on the device, GFA on the host."""
     num_u = int(dbg.num_unitigs)
@@ -208,8 +291,11 @@ def assemble(source, config: AssemblyConfig,
     default raises rather than falling back to the CPU.
 
     ``source``: path to .fasta/.fastq, a list of sequence strings, or a
-    prepared ``ReadBatch``.  ``mesh`` and ``extra_solid`` exist for
-    signature parity with the JAX package and are not ported yet.
+    prepared ``ReadBatch``.  ``extra_solid``: sequences whose k-mers join
+    the node set whatever their coverage, and whose first k-mers join the
+    seeds (the multi-k re-seeding hook, ``graph/multik.py``).  ``mesh``
+    exists for signature parity with the JAX package and is not ported
+    yet.
 
     ``config.profile_stages`` synchronises the device at stage boundaries
     so ``result.stats['stages']`` is exact; on a CUDA device
@@ -217,10 +303,7 @@ def assemble(source, config: AssemblyConfig,
     """
     if mesh is not None:
         raise NotImplementedError("mesh / sharding (ROADMAP.md Queue 1 "
-                                  "item 8)")
-    if extra_solid:
-        raise NotImplementedError("extra_solid (multi-k re-seeding, "
-                                  "ROADMAP.md Queue 1 item 4)")
+                                  "item 4)")
     reason = _unsupported(config)
     if reason:
         raise NotImplementedError(reason)
@@ -281,6 +364,15 @@ def assemble(source, config: AssemblyConfig,
         packed, valid_len, read_id, start, read_len, config.cov_threshold,
         k=config.k, short_k=min(config.short_k, config.k),
         num_reads=batch.num_reads)
+    if extra_solid:
+        etab, eseed = _extra_solid_table(extra_solid, config, device)
+        table = count_mod.merge_tables(table, etab)
+        del etab
+        nid = None  # node ranks shifted; stage 3 looks the positions up
+        seed_fw = torch.cat([seed_fw, eseed], dim=0)
+        has_seed = torch.cat([has_seed, torch.ones(
+            (eseed.shape[0],), dtype=torch.bool, device=device)])
+        log.write(f"extra-solid merge: {len(extra_solid)} seqs")
     num_nodes = int(table.size)
     log.write(f"counted short kmer; solid nodes={num_nodes}")
     log.metric("seed kmer num", int(has_seed.sum()))
@@ -308,11 +400,22 @@ def assemble(source, config: AssemblyConfig,
     timer.mark("stage2_graph")
 
     # ---- stage 3: coverage + reachability ----
-    cov, reach_jun, reach_uni, chars = _stage3(
-        dbg, packed, valid_len, start, read_len, dev(batch.prev_base),
-        dev(batch.next_base), seed_fw, has_seed, nid, k=config.k)
+    prev_base, next_base = dev(batch.prev_base), dev(batch.next_base)
+
+    def run_stage3(dbg, nid):
+        return _stage3(dbg, packed, valid_len, start, read_len, prev_base,
+                       next_base, seed_fw, has_seed, nid, k=config.k)
+
+    stage3 = run_stage3(dbg, nid)
     log.write("count node coverage")
     timer.mark("stage3_coverage")
+
+    simplify_drops = 0
+    if config.clip_tips or config.pop_bubbles:
+        dbg, stage3, simplify_drops = _simplify(dbg, stage3, nid, bf, config,
+                                                log, run_stage3, timer)
+        timer.mark("simplify")
+    cov, reach_jun, reach_uni, chars = stage3
 
     if not config.restrict_to_seeds:
         reach_jun = torch.ones_like(reach_jun)
@@ -330,11 +433,17 @@ def assemble(source, config: AssemblyConfig,
     log.write(f"finish ({time.time() - t0:.2f}s, {n_s} straights, "
               f"{n_j} junctions)")
     stats = {"elapsed_s": time.time() - t0,
+             "k": config.k,
              "all_bases": batch.all_bases,
              "num_reads": batch.num_reads,
              "solid_nodes": num_nodes,
              "graph_nodes": int(dbg.size),
+             "straights": n_s,
+             "junctions": n_j,
+             "straight_n50": _n50([len(ln.split("\t")[2]) for ln in lines
+                                   if ln.startswith("S\tStraight")]),
              "closure_rounds": closure_rounds,
+             "simplify_drops": simplify_drops,
              "device": str(device),
              "stages": dict(timer.spans)}
     if timer.peak_bytes:

@@ -167,5 +167,11 @@ def test_owned_mask():
 
 
 def test_multiword_k_not_ported():
-    with pytest.raises(NotImplementedError):
-        TC.pack_keys(torch.zeros((3, 3), dtype=torch.int64))
+    """Multi-word k is ported now: three lanes pack into two order words
+    (lane 0 alone, then lanes 1-2) and unpack back."""
+    lanes = torch.tensor([[1, 0xFFFFFFFF, 2], [0, 5, 0xFFFFFFFF]])
+    words = TC.pack_keys(lanes)
+    assert words.shape == (2, 2)
+    assert torch.equal(TC.unpack_keys(words, 3), lanes)
+    okey = TC.order_keys(lanes)
+    assert bool(okey[1, 0] < okey[0, 0])

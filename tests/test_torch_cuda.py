@@ -13,6 +13,7 @@ import torch
 
 from platanus3_tpu_torch import sim
 from platanus3_tpu_torch.config import AssemblyConfig
+from platanus3_tpu_torch.graph.multik import assemble_multik
 from platanus3_tpu_torch.ops import bloom as TB
 from platanus3_tpu_torch.ops import bloom_blocked as TBB
 from platanus3_tpu_torch.ops import count as TC
@@ -45,7 +46,12 @@ def canon_batch(rows, k, seed, device):
 @pytest.mark.parametrize("k,log2_bits,hashes",
                          [(25, 5, 3), (32, 10, 4), (25, 16, 3), (25, 20, 10),
                           (32, 16, 2), (32, 20, 7), (32, 30, 10),
-                          (21, 31, 4)])
+                          (21, 31, 4),
+                          # every lane hashed: three, four and eight lanes
+                          (48, 20, 10), (64, 30, 10), (128, 24, 7),
+                          # the wide positions, 2^32 to 2^35 bits
+                          (32, 32, 10), (64, 33, 10), (48, 34, 3),
+                          (25, 35, 4), (128, 35, 10)])
 def test_bloom_set_bits_matches_plain(cuda, k, log2_bits, hashes):
     canon = canon_batch(200_000, k, seed=k + log2_bits, device=cuda)
     mask = torch.rand(200_000, device=cuda) < 0.9
@@ -63,12 +69,14 @@ def test_bloom_set_bits_matches_plain(cuda, k, log2_bits, hashes):
                                                      k).bits)
 
 
-@pytest.mark.parametrize("k", [21, 32])
+@pytest.mark.parametrize("k", [21, 32, 48, 64, 128])
 def test_oa_count_insert_matches_plain(cuda, k):
     rows = 200_000
+    lanes = TK.num_lanes(k)
     canon = canon_batch(rows, k, seed=k, device=cuda)
-    if k == 32:  # the T^16 A^16 palindrome: lane 0 all ones
-        canon[:7] = torch.tensor([0xFFFFFFFF, 0], device=cuda)
+    if k % 32 == 0:  # the T^(k/2) A^(k/2) palindrome: top lanes all ones
+        canon[:7] = torch.tensor([0xFFFFFFFF] * (lanes // 2)
+                                 + [0] * (lanes // 2), device=cuda)
     contrib = torch.rand(rows, device=cuda) < 0.8
     contrib[:7] = True
     before = TOA.count_kmers_oa.kernel_launches
@@ -76,7 +84,7 @@ def test_oa_count_insert_matches_plain(cuda, k):
     torch.cuda.synchronize()
     assert TOA.count_kmers_oa.kernel_launches == before + 1
     want = TOA.count_kmers_oa_plain(canon, contrib, k)
-    assert got.keys.shape == want.keys.shape == (2, 1 << 19)
+    assert got.keys.shape == want.keys.shape == (lanes, 1 << 19)
     assert int(got.overflow) == 0 and int(want.overflow) == 0
     assert TOA.probe_violations(got, k) == 0
     g, w = TOA.oa_to_sorted(got), TOA.oa_to_sorted(want)
@@ -116,7 +124,7 @@ def test_oa_full_block_counts_overflow(cuda):
     assert TOA.probe_violations(got, k) == 0
 
 
-@pytest.mark.parametrize("k", [21, 32])
+@pytest.mark.parametrize("k", [21, 32, 64])
 def test_oa_skewed_key_count_exact(cuda, k):
     """One key 200,000 times among random rows: the warp merge of equal
     keys must still count every row."""
@@ -135,10 +143,11 @@ def test_oa_skewed_key_count_exact(cuda, k):
     assert_oa_equals_plain(got, canon, contrib, k)
 
 
+@pytest.mark.parametrize("k", [32, 64])
 @pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize("log2_bits", [19, 20, 30, 33, 35])
-def test_bloom_blocked_set_bits_matches_plain(cuda, log2_bits, masked):
-    k, hashes = 32, 10
+def test_bloom_blocked_set_bits_matches_plain(cuda, log2_bits, masked, k):
+    hashes = 10
     canon = canon_batch(200_000, k, seed=log2_bits, device=cuda)
     mask = torch.rand(200_000, device=cuda) < 0.9 if masked else None
     before = TBB.build_blocked_bloom.kernel_launches
@@ -200,3 +209,20 @@ def test_gpu_assembly_equals_cpu(cuda):
         gpu = assemble(reads, cfg, write_output=False, device=cuda)
         cpu = assemble(reads, cfg, write_output=False, device="cpu")
         assert gpu.gfa_lines == cpu.gfa_lines
+
+
+def test_gpu_multik_simplify_equals_cpu(cuda):
+    """k = 32 then 64, tips and bubbles, Bloom membership in a 2^32-bit
+    filter (the wide positions): the card's GFA equals the CPU's."""
+    genome = sim.random_genome(3000, seed=9)
+    reads = sim.simulate_reads(genome, coverage=25, read_len=400, seed=10,
+                               sub_rate=0.01)
+    cfg = AssemblyConfig(k=32, k_list=(32, 64), clip_tips=True,
+                         pop_bubbles=True, use_exact_membership=False,
+                         filter_bits=1 << 32, chunk_len=512, log_path=None)
+    before = TB.bloom_add.kernel_launches
+    gpu = assemble_multik(reads, cfg, write_output=False, device=cuda)
+    assert TB.bloom_add.kernel_launches == before + 2
+    cpu = assemble_multik(reads, cfg, write_output=False, device="cpu")
+    assert gpu.gfa_lines == cpu.gfa_lines
+    assert gpu.num_straights >= 1

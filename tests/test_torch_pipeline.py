@@ -135,9 +135,7 @@ def test_cli_bloom_run_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(k=33), dict(clip_tips=True), dict(pop_bubbles=True),
-    dict(k_list=(25, 31)), dict(checkpoint_dir="ck"), dict(trace_dir="tr"),
-    dict(filter_bits=1 << 33, use_exact_membership=False),
+    dict(checkpoint_dir="ck"), dict(trace_dir="tr"),
 ])
 def test_unported_options_raise(kw):
     cfg = TConfig(chunk_len=256, log_path=None, **kw)
