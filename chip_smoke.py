@@ -12,14 +12,21 @@ Phases, each of which ends the run with a nonzero exit on failure:
    against the plain PyTorch build on the card, at a small shape, at the
    main run's shape (k = 32, 2^30 bits), at that shape with k = 64 and
    k = 128 (four and eight lanes) and with 2^32, 2^33 and 2^35 bits (the
-   wide positions), and at filters from 2^5 to 2^35 bits; the words must
-   be bit-equal and the input filter unmodified; times from CUDA events,
-   for the whole call and for each of its passes;
+   wide positions), at the chromosome run's per-slice shape (4096 x 4072
+   rows, k = 25, 2^33 bits, phase 12), and at filters from 2^5 to 2^35
+   bits; the words must be bit-equal and the input filter unmodified;
+   times from CUDA events, for the whole call and for each of its passes;
 4. CPU/GPU parity: a 20 kb genome at 25x in Bloom mode with a filter small
    enough that the false-positive closure runs; then the same reads
    through multi-k (k = 32, 64) with tips clipped and bubbles popped in a
-   2^32-bit filter; the GFA line lists from the card and from the CPU
-   (plain versions) must be identical;
+   2^32-bit filter; then through streaming (``assemble_streaming``, 8
+   chunks a slice) in Bloom mode with the small filter, one
+   ``bloom_set_bits`` launch a slice; the GFA line lists from the card and
+   from the CPU (plain versions) must be identical.  Then a streaming CLI
+   run on the card with ``--checkpoint-dir`` is killed after its
+   ``spass2`` checkpoint (``P3_FAULT_AFTER``, exit code 137) in a
+   subprocess and resumed in another; its GFA must equal an uncrashed
+   run's;
 5. the main run's reads: a generated genome of E. coli K-12 MG1655's
    length and GC (4,641,652 bp, 50.8 %; NCBI NC_000913.3), 20x of 10 kb
    reads with 0.1 % substitutions (BASELINE config 1), chunked as the main
@@ -40,10 +47,13 @@ Phases, each of which ends the run with a nonzero exit on failure:
    at 2^30 bits: 200,000 distinct k-mers all in block 0, and 200,000
    copies of one k-mer, each bit-equal to the plain build with overflow 0
    and no false negative;
-8. main run: those reads through the port's ``cli.main`` with ``-k 32
-   -m 1073741824 --membership bloom``; checks the launch count and that
-   the straights cover >= 0.9 of the genome, >= 0.9 of their bases as
-   exact genome substrings;
+8. main run: those reads, written as FASTA, through the port's
+   ``cli.main`` with ``-k 32 -m 1073741824 --membership bloom`` (the read
+   file loaded by the C++ loader, whose ``load`` span is printed); checks
+   the launch count and that the straights cover >= 0.9 of the genome,
+   >= 0.9 of their bases as exact genome substrings.  Then the same run
+   with ``--trace-dir``: ``bloom_set_bits`` must be among the trace's CUDA
+   kernels, and the device's busy share of the traced window is printed;
 9. multi-k run: the same reads through ``cli.main`` with ``--k-list
    32,64,128 --clip-tips --pop-bubbles --membership bloom -m 8589934592``
    (BASELINE configs 4 and 3, a 2^33-bit filter); checks one
@@ -54,9 +64,27 @@ Phases, each of which ends the run with a nonzero exit on failure:
    genome substrings is printed, not held to 0.9: the bubble rule of the
    JAX package, which the port keeps, pops the loop arm of tandem arrays
    (ROADMAP.md Queue 3).  The witness is the same run without
-   ``--pop-bubbles``, held to both quality bounds.
+   ``--pop-bubbles``, held to both quality bounds;
+10. E. coli streaming: phase 8's arguments plus ``--streaming
+    --slice-chunks 2048``.  Phase 8's Bloom closure must have added no
+    node (streaming runs none); then the GFA must equal phase 8's line for
+    line, with one ``bloom_set_bits`` launch a slice; prints the spans and
+    peak memory;
+11. threshold sweep (BASELINE config 2): ``sweep.solid_threshold_sweep``
+    on the main reads at k = 32, thresholds 1, 2, 3, 4, 6 and 8, against
+    the genome; ``n_solid`` must not rise with the threshold and the best
+    F1 must be >= 0.95; prints every row;
+12. chromosome-sized streaming (BASELINE config 5 on one card): the
+    recipe of ``benchmarks/chr21_stream.py`` (a random 46.7 Mb genome,
+    seed 0; 12x of 8 kb reads with 0.2 % substitutions, seed 1; about 560
+    Mbases) through ``cli.main --streaming -k 25 --cov-threshold 3
+    --chunk-len 4096 --slice-chunks 4096 --membership bloom -m
+    8589934592``; the straights must cover >= 0.9 of the genome, >= 0.9
+    of their bases as exact genome substrings, with one ``bloom_set_bits``
+    launch a slice and a peak below 80 GB of device memory; prints every
+    span and its peak, nodes, straights, junctions and N50.
 
-Phases 6-9 each drive their path with the kernels' launch counts set to
+Phases 6-12 each drive their path with the kernels' launch counts set to
 0 just before and read just after; launches made to compare a kernel with
 its plain version or to time it are not counted.  The second-to-last line
 is the kernels' JSON (times from CUDA events, bounds from this run's
@@ -66,11 +94,15 @@ shapes), the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
 
 GENOME_LEN = 4_641_652        # E. coli K-12 MG1655, NC_000913.3
 GENOME_GC = 0.508
@@ -86,6 +118,22 @@ BLOOM_CHECK_LOG2_BITS = (5, 10, 19, 20, 31, 32, 35)
 BLOOM_MAIN_SHAPES = ((32, 30), (64, 30), (128, 30), (32, 32), (32, 33),
                      (32, 35), (128, 33))
 OA_KS = (SHORT_K, MAIN_K, 64)
+# The chromosome-sized streaming run (phase 12): benchmarks/chr21_stream.py's
+# recipe, and the per-slice shape of its bloom_set_bits launches (4096
+# chunks of 4096 bases, 4072 k = 25 positions each).
+CHR21_GENOME_LEN = 46_700_000
+CHR21_ARGS = ["--streaming", "-k", "25", "--cov-threshold", "3",
+              "--chunk-len", "4096", "--slice-chunks", "4096",
+              "--membership", "bloom", "-m", str(1 << 33)]
+CHR21_SLICE_CHUNKS = 4096
+SLICE_ROWS = 4096 * (4096 - 25 + 1)
+ECOLI_SLICE_CHUNKS = 2048
+SWEEP_THRESHOLDS = (1, 2, 3, 4, 6, 8)
+DEVICE_BYTES_LIMIT = 80e9
+# Events of the device in a torch.profiler Chrome trace; bloom_set_bits
+# is the only caller of the region OR kernel.
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+BLOOM_SET_BITS_KERNEL = "bloom_region_or_kernel"
 WIDE_BLOCKED_K = 64
 FP_PROBES = 1_000_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
@@ -236,6 +284,23 @@ def bloom_main_shapes(rows):
                     "bound_ms": bound, "library_ms": None,
                     "passes": passes})
     return out
+
+
+def bloom_slice_shape():
+    """``bloom_set_bits`` at the per-slice shape of the chromosome run:
+    4096 chunks x 4072 k = 25 positions, all masked in, a 2^33-bit
+    filter, 10 hashes.  Returns its measurement dict."""
+    err, ms, plain_ms, bound, passes = kernel_vs_plain(
+        SLICE_ROWS, SLICE_ROWS, 25, 33, MAIN_HASHES, seed=5, reps=10,
+        plain_reps=3)
+    shape = f"{SLICE_ROWS} rows (4096 x 4072), all masked in, k=25, 2^33 " \
+            f"bits, {MAIN_HASHES} hashes"
+    log(f"kernel slice shape ({shape}): max_abs_err {err}, kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms")
+    log(f"kernel slice shape passes: {fmt_passes(passes)}")
+    return {"shape": shape, "k": 25, "log2_bits": 33, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "library_ms": None, "passes": passes}
 
 
 def bloom_sizes_check(rows=200_000, k=25, hashes=4) -> int:
@@ -490,14 +555,14 @@ def blocked_phase(arrays):
     import torch
     from platanus3_tpu_torch import kernels
     from platanus3_tpu_torch.ops import bloom_blocked
-    from platanus3_tpu_torch.pipeline import (_graph_cap, _pad_table_keys,
+    from platanus3_tpu_torch.pipeline import (graph_cap, pad_table_keys,
                                               _stage1)
     table, _, _, _ = _stage1(
         arrays["packed"], arrays["valid_len"], arrays["read_id"],
         arrays["start"], arrays["read_len"], COV_THRESHOLD, k=MAIN_K,
         short_k=SHORT_K, num_reads=arrays["num_reads"])
     size = int(table.size)
-    nodes = _pad_table_keys(table.keys, size, _graph_cap(size)).contiguous()
+    nodes = pad_table_keys(table.keys, size, graph_cap(size)).contiguous()
     del table
     mask = torch.arange(nodes.shape[0], device=nodes.device) < size
     probes = random_canon(FP_PROBES, MAIN_K, seed=3, device=nodes.device)
@@ -583,13 +648,53 @@ def run_stats(run_log: Path) -> list:
             if "] stats {" in line]
 
 
+def exact_substring_bases(straights, genome: str, w: int = 24) -> int:
+    """Bases of ``straights`` that are exact substrings of the genome or
+    of its reverse complement.  Each straight's first w-mer, in both
+    orientations, is looked up in a sorted index of the genome's w-mers,
+    and each hit is compared base for base; a scan of the genome per
+    straight would take minutes at chromosome size."""
+    import numpy as np
+    from platanus3_tpu_torch import sim
+    lut = np.zeros(256, np.int64)
+    for i, c in enumerate("ACGT"):
+        lut[ord(c)] = i
+
+    def wmers(seq: str):
+        codes = lut[np.frombuffer(seq.encode(), np.uint8)]
+        n = codes.shape[0] - w + 1
+        v = np.zeros(n, np.int64)
+        for j in range(w):
+            v = (v << 2) | codes[j:j + n]
+        return v
+
+    index = wmers(genome)
+    order = np.argsort(index, kind="stable")
+    ordered = index[order]
+    del index
+    exact = 0
+    for x in straights:
+        found = False
+        for cand in (x, sim.revcomp(x)):
+            if len(cand) < w:
+                found = cand in genome
+            else:
+                key = wmers(cand[:w])[0]
+                lo, hi = np.searchsorted(ordered, [key, key + 1])
+                found = any(genome[p:p + len(cand)] == cand
+                            for p in order[lo:hi].tolist())
+            if found:
+                break
+        exact += len(x) if found else 0
+    return exact
+
+
 def check_quality(gfa: Path, genome: str, what: str,
                   hold_exact: bool = True):
     """Straight length sum against the genome and the share of straight
     bases that are exact genome substrings; the first must be >= 0.9, and
     the second too with ``hold_exact``.  Returns (straights, junctions,
     length sum, N50, exact share)."""
-    from platanus3_tpu_torch import sim
     from platanus3_tpu_torch.pipeline import _n50 as n50
     lines = gfa.read_text().splitlines()
     straights = [ln.split("\t")[2] for ln in lines
@@ -597,8 +702,7 @@ def check_quality(gfa: Path, genome: str, what: str,
     n_jun = sum(1 for ln in lines if ln.startswith("S\tJunction"))
     lengths = [len(x) for x in straights]
     total = sum(lengths)
-    rc_genome = sim.revcomp(genome)
-    exact = sum(len(x) for x in straights if x in genome or x in rc_genome)
+    exact = exact_substring_bases(straights, genome)
     share = exact / max(total, 1)
     log(f"{what}: straight length sum {total} "
         f"({total / len(genome):.4f} of the genome), N50 {n50(lengths)}, "
@@ -642,12 +746,17 @@ def cli_run(workdir: Path, fasta: Path, args, device: str = "cuda"):
     return wall, launches, gfa, stats
 
 
+MAIN_ARGS = ["-k", "32", "-m", str(MAIN_FILTER_BITS), "--membership",
+             "bloom"]
+
+
 def main_run(workdir: Path, genome: str, fasta: Path, device: str = "cuda"):
-    wall, launches, gfa, (stats,) = cli_run(
-        workdir, fasta, ["-k", "32", "-m", str(MAIN_FILTER_BITS),
-                         "--membership", "bloom"], device)
+    """Phase 8's run.  Returns (launches, stats, a copy of its GFA)."""
+    wall, launches, gfa, (stats,) = cli_run(workdir, fasta, MAIN_ARGS,
+                                            device)
     log(f"main: cli wall {wall:.3f} s; stages (s): "
         + json.dumps(stats["stages"]))
+    log(f"main: load span (C++ read loader) {stats['stages']['load']:.4f} s")
     log("main: peak device memory per stage (bytes): "
         + json.dumps(stats.get("peak_bytes", {})))
     n_s, n_jun, _, _, _ = check_quality(gfa, genome, "main")
@@ -657,7 +766,130 @@ def main_run(workdir: Path, genome: str, fasta: Path, device: str = "cuda"):
     log(f"main: bloom_set_bits launches {launches}")
     if device == "cuda" and launches < 1:
         raise AssertionError("the main run never launched bloom_set_bits")
-    return launches
+    kept = workdir / "main.gfa"
+    shutil.copyfile(gfa, kept)
+    return launches, stats, kept
+
+
+def trace_summary(trace: Path) -> dict:
+    """Device activity in a ``torch.profiler`` Chrome trace: the traced
+    window (the event ``device_trace`` opens around the whole run), the
+    union of the device's kernel, copy and set intervals within it, the
+    region-OR launches of ``bloom_set_bits``, and device time by kernel
+    name."""
+    from platanus3_tpu_torch.utils.profiling import TRACE_WINDOW
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "ts" in e]
+    (window,) = [e for e in events if e.get("name") == TRACE_WINDOW
+                 and e.get("cat") == "user_annotation"]
+    start = float(window["ts"])
+    end = start + float(window["dur"])
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                    for e in events if e.get("cat") in DEVICE_EVENT_CATS)
+    busy, reach = 0.0, start
+    for lo, hi in device:
+        lo = max(lo, reach)
+        if hi > lo:
+            busy += hi - lo
+            reach = hi
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(
+                e.get("dur", 0))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"window_s": (end - start) / 1e6, "busy_s": busy / 1e6,
+            "busy_share": busy / max(end - start, 1e-9),
+            "device_events": len(device),
+            "bloom_region_or_launches": sum(
+                1 for e in events if e.get("cat") == "kernel"
+                and BLOOM_SET_BITS_KERNEL in e["name"]),
+            "top_kernels_ms": [(name[:90], t / 1e3) for name, t in top]}
+
+
+def traced_main_run(workdir: Path, fasta: Path):
+    """Phase 8 again with ``--trace-dir``: ``bloom_set_bits`` must be
+    among the trace's kernels.  Returns (launches, trace summary)."""
+    trace_dir = workdir / "trace"
+    wall, launches, _, (stats,) = cli_run(
+        workdir, fasta, MAIN_ARGS + ["--trace-dir", str(trace_dir)])
+    from platanus3_tpu_torch.utils.profiling import TRACE_FILE
+    trace = trace_dir / TRACE_FILE
+    summary = trace_summary(trace)
+    log(f"main traced: cli wall {wall:.3f} s, trace {trace.stat().st_size} "
+        f"bytes; traced window {summary['window_s']:.4f} s, device busy "
+        f"{summary['busy_s']:.4f} s = busy share {summary['busy_share']:.4f}"
+        f" ({summary['device_events']} device events); bloom_set_bits "
+        f"region-OR kernels in the trace {summary['bloom_region_or_launches']}"
+        f", launches counted {launches}")
+    log("main traced: device time by kernel (ms): "
+        + json.dumps(summary["top_kernels_ms"]))
+    log("main traced: stages (s) " + json.dumps(stats["stages"]))
+    if summary["bloom_region_or_launches"] != launches or launches < 1:
+        raise AssertionError("the trace does not show the bloom_set_bits "
+                             "launches of the run")
+    shutil.rmtree(trace_dir)
+    return launches, summary
+
+
+def streaming_parity_run(workdir: Path):
+    """The parity run's reads through streaming, 8 chunks a slice, in
+    Bloom mode with the small filter, on the card and on the CPU; then a
+    crash after ``spass2`` and a resume on the card, in subprocesses.
+    Returns (slices, card GFA lines)."""
+    from platanus3_tpu_torch import cli, sim
+    from platanus3_tpu_torch.config import AssemblyConfig
+    from platanus3_tpu_torch.io import reads as reads_mod
+    from platanus3_tpu_torch.ops import bloom
+    from platanus3_tpu_torch.streaming import assemble_streaming
+    genome = sim.random_genome(20_000, seed=7)
+    reads = sim.simulate_reads(genome, coverage=25, read_len=1000, seed=8,
+                               sub_rate=0.01)
+    cfg = AssemblyConfig(k=25, use_exact_membership=False,
+                         filter_bits=1 << 18, num_hashes=2, log_path=None)
+    chunks = reads_mod.reads_from_strings(reads, 25, cfg.chunk_len).num_chunks
+    slices = -(-chunks // 8)
+    before = bloom.bloom_add.kernel_launches
+    gpu = assemble_streaming(reads, cfg, write_output=False, slice_chunks=8,
+                             device="cuda")
+    if bloom.bloom_add.kernel_launches - before != slices:
+        raise AssertionError("streaming parity: not one bloom_set_bits "
+                             "launch a slice")
+    cpu = assemble_streaming(reads, cfg, write_output=False, slice_chunks=8,
+                             device="cpu")
+    if gpu.gfa_lines != cpu.gfa_lines:
+        raise AssertionError("streaming parity: GPU and CPU GFA differ")
+    if gpu.num_straights < 1:
+        raise AssertionError("streaming parity: no straight")
+
+    fasta = workdir / "parity.fasta"
+    fasta.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
+    args = ["-i", str(fasta), "--streaming", "--slice-chunks", "8",
+            "--membership", "bloom", "-m", str(1 << 18), "--log", ""]
+    plain_gfa = workdir / "uncrashed.gfa"
+    if cli.main(args + ["-o", str(plain_gfa)]) != 0:
+        raise AssertionError("streaming parity: uncrashed CLI run failed")
+    ckpt, resumed = workdir / "ckpt", workdir / "resumed.gfa"
+    cmd = [sys.executable, "-m", "platanus3_tpu_torch.cli", *args,
+           "--checkpoint-dir", str(ckpt), "-o", str(resumed)]
+    env = dict(os.environ, P3_FAULT_AFTER="spass2")
+    crash = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=300)
+    if crash.returncode != 137 or not list(ckpt.glob("*/spass2.npz")):
+        raise AssertionError(f"streaming crash: exit code "
+                             f"{crash.returncode}, not 137 after spass2\n"
+                             f"{crash.stderr[-2000:]}")
+    env.pop("P3_FAULT_AFTER")
+    resume = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                            text=True, timeout=300)
+    if resume.returncode != 0:
+        raise AssertionError(f"streaming resume failed:\n"
+                             f"{resume.stderr[-2000:]}")
+    if resumed.read_text() != plain_gfa.read_text():
+        raise AssertionError("streaming resume: GFA differs from the "
+                             "uncrashed run's")
+    shutil.rmtree(ckpt)
+    return slices, gpu
 
 
 def multik_run(workdir: Path, genome: str, fasta: Path,
@@ -694,6 +926,103 @@ def multik_run(workdir: Path, genome: str, fasta: Path,
     return launches, share
 
 
+def log_spans(what: str, stats: dict) -> None:
+    log(f"{what}: stages (s) " + json.dumps(stats["stages"]))
+    log(f"{what}: peak device memory per stage (bytes) "
+        + json.dumps(stats.get("peak_bytes", {})))
+
+
+def ecoli_streaming_run(workdir: Path, genome: str, fasta: Path, chunks: int,
+                        main_stats: dict, main_gfa: Path):
+    """Phase 8's run through streaming, 2048 chunks a slice: the same GFA,
+    one ``bloom_set_bits`` launch a slice.  Returns launches."""
+    if main_stats["closure_rounds"] != 0 or \
+            main_stats["graph_nodes"] != main_stats["solid_nodes"]:
+        raise AssertionError("E. coli streaming: phase 8's Bloom closure "
+                             "added nodes, which streaming never adds")
+    wall, launches, gfa, (stats,) = cli_run(
+        workdir, fasta, MAIN_ARGS + ["--streaming", "--slice-chunks",
+                                     str(ECOLI_SLICE_CHUNKS)])
+    slices = -(-chunks // ECOLI_SLICE_CHUNKS)
+    log(f"E. coli streaming: cli wall {wall:.3f} s, {slices} slices, "
+        f"bloom_set_bits launches {launches}, solid nodes "
+        f"{stats['solid_nodes']}, straights {stats['straights']}, junctions "
+        f"{stats['junctions']}, N50 {stats['straight_n50']}")
+    log_spans("E. coli streaming", stats)
+    if gfa.read_text() != main_gfa.read_text():
+        raise AssertionError("E. coli streaming: GFA differs from phase 8's")
+    if launches != slices:
+        raise AssertionError(f"E. coli streaming: {launches} bloom_set_bits "
+                             f"launches for {slices} slices")
+    return launches
+
+
+def sweep_run(genome: str, fasta: Path):
+    """The threshold sweep on the main reads at k = 32 against the
+    genome: ``n_solid`` must not rise with the threshold, the best F1 must
+    be >= 0.95.  Returns the rows."""
+    import torch
+    from platanus3_tpu_torch.config import AssemblyConfig
+    from platanus3_tpu_torch.sweep import solid_threshold_sweep
+    torch.cuda.synchronize()
+    t = time.time()
+    rows = solid_threshold_sweep(
+        str(fasta), AssemblyConfig(k=MAIN_K, log_path=None),
+        SWEEP_THRESHOLDS, truth_genome=genome, device="cuda")
+    torch.cuda.synchronize()
+    log(f"sweep k={MAIN_K}: {time.time() - t:.3f} s for "
+        f"{len(SWEEP_THRESHOLDS)} thresholds (one counting pass)")
+    for row in rows:
+        log("sweep: " + json.dumps(row))
+    n_solid = [r["n_solid"] for r in rows]
+    if any(a < b for a, b in zip(n_solid, n_solid[1:])):
+        raise AssertionError(f"sweep: n_solid rises with the threshold "
+                             f"{n_solid}")
+    best = max(rows, key=lambda r: r["f1"])
+    if best["f1"] < 0.95:
+        raise AssertionError(f"sweep: best F1 {best['f1']} < 0.95")
+    return rows
+
+
+def chr21_run(workdir: Path):
+    """The chromosome-sized streaming run (phase 12).  Returns
+    (launches, stats)."""
+    from platanus3_tpu_torch import sim
+    t = time.time()
+    genome = sim.random_genome(CHR21_GENOME_LEN, seed=0)
+    reads = sim.simulate_reads(genome, coverage=12, read_len=8000, seed=1,
+                               sub_rate=0.002)
+    fasta = workdir / "chr21.fasta"
+    with open(fasta, "w") as f:
+        for i in range(0, len(reads), 4096):
+            f.write("".join(f">r{j}\n{reads[j]}\n"
+                            for j in range(i, min(i + 4096, len(reads)))))
+    log(f"chr21: {len(reads)} reads, {sum(map(len, reads))} bases, "
+        f"generated and written in {time.time() - t:.1f} s (host)")
+    stride = 4096 - 25 + 1
+    chunks = sum((len(r) - 25) // stride + 1 for r in reads if len(r) >= 25)
+    slices = -(-chunks // CHR21_SLICE_CHUNKS)
+    del reads
+    wall, launches, gfa, (stats,) = cli_run(workdir, fasta, CHR21_ARGS)
+    fasta.unlink()
+    peak = max(stats.get("peak_bytes", {}).values(), default=0)
+    log(f"chr21: cli wall {wall:.3f} s, {chunks} chunks in {slices} slices, "
+        f"bloom_set_bits launches {launches}, solid nodes "
+        f"{stats['solid_nodes']}, graph nodes {stats['graph_nodes']}, "
+        f"straights {stats['straights']}, junctions {stats['junctions']}, "
+        f"N50 {stats['straight_n50']}, peak device memory {peak} bytes")
+    log_spans("chr21", stats)
+    t = time.time()
+    check_quality(gfa, genome, "chr21")
+    log(f"chr21: quality check {time.time() - t:.1f} s (host)")
+    if launches != slices:
+        raise AssertionError(f"chr21: {launches} bloom_set_bits launches "
+                             f"for {slices} slices")
+    if peak >= DEVICE_BYTES_LIMIT:
+        raise AssertionError(f"chr21: peak device memory {peak} bytes")
+    return launches, stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -702,7 +1031,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from platanus3_tpu_torch import kernels
-    from platanus3_tpu_torch.pipeline import _graph_cap
+    from platanus3_tpu_torch.pipeline import graph_cap
 
     gpu = gpu_line()
     log(f"gpu: {gpu}")
@@ -718,8 +1047,9 @@ def main() -> int:
     log(f"kernel small (50000 rows, k=25, 2^16 bits, 3 hashes): "
         f"max_abs_err {small[0]}, kernel {small[1]:.4f} ms, "
         f"plain {small[2]:.4f} ms")
-    rows = _graph_cap(GENOME_LEN)
+    rows = graph_cap(GENOME_LEN)
     bloom_shapes = bloom_main_shapes(rows)
+    bloom_shapes.append(bloom_slice_shape())
     sizes_err = bloom_sizes_check()
     log(f"kernel at 2^{BLOOM_CHECK_LOG2_BITS} bits (200000 rows, k=25, 4 "
         f"hashes, twice onto the same filter): bit-equal, inputs intact")
@@ -736,9 +1066,18 @@ def main() -> int:
         f"CPU GFA identical ({len(mk.gfa_lines)} lines, {mk.num_straights} "
         f"straights, {mk.stats['simplify_drops']} unitigs dropped in the "
         f"last round) in {time.time() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        n_slices, st = streaming_parity_run(Path(tmp))
+        log(f"streaming parity (8 chunks a slice, 2^18 bits): GPU and CPU "
+            f"GFA identical ({len(st.gfa_lines)} lines, {st.num_nodes} "
+            f"nodes), one bloom_set_bits launch for each of {n_slices} "
+            f"slices; killed after spass2 (exit code 137) and resumed on "
+            f"the card to the uncrashed GFA; in {time.time() - t:.1f} s")
     torch.cuda.empty_cache()
 
     genome, reads, arrays = main_reads()
+    chunks = arrays["packed"].shape[0]
     oa_launches, oa_err, oa = oa_phase(arrays)
     bb_launches, bb_err, bb = blocked_phase(arrays)
     del arrays
@@ -748,30 +1087,43 @@ def main() -> int:
                              f"oa_count_insert {oa_launches}, "
                              f"bloom_blocked_set_bits {bb_launches}")
 
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        fasta = Path(tmp) / "reads.fasta"
+        work = Path(tmp)
+        fasta = work / "reads.fasta"
         with open(fasta, "w") as f:
             for i, r in enumerate(reads):
                 f.write(f">r{i}\n{r}\n")
         del reads
-        launches = main_run(Path(tmp), genome, fasta)
+        launches["main"], main_stats, main_gfa = main_run(work, genome,
+                                                          fasta)
         torch.cuda.empty_cache()
-        mk_launches, mk_share = multik_run(Path(tmp), genome, fasta)
+        launches["main traced"], _ = traced_main_run(work, fasta)
         torch.cuda.empty_cache()
-        wit_launches, wit_share = multik_run(Path(tmp), genome, fasta,
-                                             pop_bubbles=False)
+        launches["multi-k"], mk_share = multik_run(work, genome, fasta)
+        torch.cuda.empty_cache()
+        launches["multi-k without bubble popping"], wit_share = multik_run(
+            work, genome, fasta, pop_bubbles=False)
+        torch.cuda.empty_cache()
+        launches["E. coli streaming"] = ecoli_streaming_run(
+            work, genome, fasta, chunks, main_stats, main_gfa)
+        torch.cuda.empty_cache()
+        sweep_run(genome, fasta)
+        torch.cuda.empty_cache()
     log(f"multi-k: exact-substring share {mk_share:.4f} with bubbles popped "
         f"by the JAX package's rule, {wit_share:.4f} without bubble popping; "
         f"the rule pops tandem arrays' loop arms, a known fault of the "
         f"reference (ROADMAP.md Queue 3)")
-    log(f"bloom_set_bits launches: main run {launches}, multi-k run "
-        f"{mk_launches}, multi-k without bubble popping {wit_launches}")
+    del genome
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["chr21 streaming"], _ = chr21_run(Path(tmp))
+    torch.cuda.empty_cache()
+    log("bloom_set_bits launches: " + json.dumps(launches))
 
     main_bloom = bloom_shapes[0]
     bloom_entry = kernel_entry(
         "bloom_set_bits", BLOOM_SOURCE,
-        "platanus3_tpu/ops/bloom_pallas.py:53",
-        launches + mk_launches + wit_launches,
+        "platanus3_tpu/ops/bloom_pallas.py:53", sum(launches.values()),
         max([small[0], sizes_err] + [b["max_abs_err"] for b in bloom_shapes]),
         main_bloom["ms"], main_bloom["plain_ms"], main_bloom["bound_ms"])
     bloom_entry["shapes"] = [{key: b[key] for key in (

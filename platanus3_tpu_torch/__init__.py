@@ -18,9 +18,12 @@ Conventions shared by every module:
 * Bloom filter words are ``int32`` tensors holding the ``uint32`` word
   bit patterns (bit ``p`` is bit ``p & 31`` of word ``p >> 5``).
 
-The slices ported so far are single-shot ``assemble`` for k <= 32, in
-exact or Bloom membership mode, and the entry points of the other two
-kernels (``ops/count_oa``, ``ops/bloom_blocked``).  Everything else raises
+Ported: single-shot ``pipeline.assemble`` at any k, in exact or Bloom
+membership, with simplification and checkpoints; ``graph/multik``;
+``streaming.assemble_streaming``; ``sweep.solid_threshold_sweep``; the C++
+read loader (``native/``); ``torch.profiler`` traces; the CLI; and the
+entry points of the other two kernels (``ops/count_oa``,
+``ops/bloom_blocked``).  Sharding (the mesh) raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 

@@ -10,10 +10,11 @@ Usage (matches ``ShowUsage``, ``src/ShowInfo.cpp:9``):
     python -m platanus3_tpu_torch.cli -i {readfile} -k {kmersize} -t {threads}
 
 Port of ``platanus3_tpu/cli.py`` with the same flags plus ``--device``;
-``--k-list`` with several k runs ``graph/multik.assemble_multik``.  Flags
-of parts not ported yet (``--mesh``, ``--streaming``,
-``--checkpoint-dir``, ``--trace-dir``) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+``--k-list`` with several k runs ``graph/multik.assemble_multik`` (and
+then, as in the JAX package, ``--streaming`` is not applied), else
+``--streaming`` runs ``streaming.assemble_streaming``.  ``--mesh``
+(sharding) is not ported yet and raises ``NotImplementedError`` naming
+its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -86,7 +87,8 @@ def build_parser():
     p.add_argument("--checkpoint-dir", default="",
                    help="directory for stage checkpoints (resume support)")
     p.add_argument("--trace-dir", default="",
-                   help="profiler trace directory (not ported yet)")
+                   help="write a torch.profiler Chrome trace of the run "
+                        "here (trace.json; open with Perfetto)")
     p.add_argument("--profile-stages", action="store_true",
                    help="barrier at stage boundaries so the logged "
                         "per-stage breakdown is exact")
@@ -105,15 +107,10 @@ def main(argv=None):
               "-k {kmersize} -t {numthread}")
         return 0
 
-    if args.mesh:
-        raise NotImplementedError("--mesh: sharding is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 4)")
-    if args.streaming:
-        raise NotImplementedError("--streaming is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 3)")
-
     from platanus3_tpu_torch.config import AssemblyConfig
-    from platanus3_tpu_torch.pipeline import assemble
+    from platanus3_tpu_torch.pipeline import MESH_NOT_PORTED, assemble
+    if args.mesh:
+        raise NotImplementedError(f"--mesh: {MESH_NOT_PORTED}")
     from platanus3_tpu_torch.utils.logging import PipelineLog
 
     k_list = tuple(int(x) for x in args.k_list.split(",") if x)
@@ -146,6 +143,14 @@ def main(argv=None):
         from platanus3_tpu_torch.graph.multik import assemble_multik
         res = assemble_multik(args.readfile, cfg, log=log,
                               device=args.device)
+    elif args.streaming:
+        from platanus3_tpu_torch.streaming import assemble_streaming
+        res = assemble_streaming(
+            args.readfile, cfg, log=log,
+            short_cap=(1 << args.short_cap_log2) if args.short_cap_log2
+            else 0,
+            node_cap=(1 << args.node_cap_log2) if args.node_cap_log2 else 0,
+            slice_chunks=args.slice_chunks, device=args.device)
     else:
         res = assemble(args.readfile, cfg, log=log, device=args.device)
     print(f"wrote {cfg.gfa_path}: {res.num_straights} straights, "

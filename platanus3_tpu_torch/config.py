@@ -109,9 +109,8 @@ class AssemblyConfig:
                                     # cached and re-runs resume past them
 
     # --- observability (new vs reference; SURVEY.md §5 tracing row) ---
-    trace_dir: str = ""             # "" = off; any other value raises
-                                    # NotImplementedError until the port
-                                    # has a torch.profiler trace
+    trace_dir: str = ""             # "" = off; else a torch.profiler
+                                    # Chrome trace of the run goes here
     profile_stages: bool = False    # torch.cuda.synchronize() at stage
                                     # boundaries so the per-stage wall-clock
                                     # breakdown is exact (off: spans are

@@ -2,10 +2,16 @@
 
 Port of ``platanus3_tpu/graph/multik.py``: assemble at increasing k (e.g.
 32 -> 64 -> 128), re-seeding each round's graph with the previous round's
-unitigs through ``pipeline.assemble``'s ``extra_solid`` hook.  Their
-k-mers join the next round's node table and their first k-mers its seeds,
-bypassing the solidity filter without touching the read batch, so the
-reads are parsed once and coverage stays read-derived.
+unitigs through the ``extra_solid`` hook of ``pipeline.assemble`` (or of
+``streaming.assemble_streaming`` with ``streaming=True``).  Their k-mers
+join the next round's node table and their first k-mers its seeds,
+bypassing the solidity filter without touching the read batch, so
+coverage stays read-derived.
+
+Each round chunks the reads for its own k.  A file source is loaded
+again for every round through the native loader (one pass of C++ over
+the file), rather than re-chunking parsed strings in Python; the batch is
+the same, and so is the GFA.
 """
 
 from __future__ import annotations
@@ -13,28 +19,29 @@ from __future__ import annotations
 import dataclasses
 
 from platanus3_tpu_torch.config import AssemblyConfig
-from platanus3_tpu_torch.io import reads as reads_mod
-from platanus3_tpu_torch.pipeline import AssemblyResult, assemble
+from platanus3_tpu_torch.pipeline import (AssemblyResult, MESH_NOT_PORTED,
+                                          assemble, check_device)
 
 __all__ = ["assemble_multik"]
 
 
 def assemble_multik(source, config: AssemblyConfig, log=None, mesh=None,
                     write_output: bool = True, streaming: bool = False,
+                    slice_chunks: int = 2048,
                     device="cuda") -> AssemblyResult:
     """Iterate assembly over ``config.k_list`` on ``device``, re-seeding
     each round with the previous round's unitigs via ``extra_solid``;
-    returns the last round's result.  ``streaming`` and ``mesh`` are not
+    returns the last round's result.  ``streaming=True`` runs every round
+    through the streaming pipeline with ``slice_chunks`` chunks a slice.
+    ``source`` is a read file or a list of sequences.  ``mesh`` is not
     ported yet."""
-    if streaming:
-        raise NotImplementedError("streaming multi-k: the streaming "
-                                  "pipeline is not ported yet (ROADMAP.md "
-                                  "Queue 1 item 3)")
+    if mesh is not None:
+        raise NotImplementedError(MESH_NOT_PORTED)
+    check_device(device, "assemble_multik")
     ks = tuple(config.k_list) or (config.k,)
-    if isinstance(source, (list, tuple)):
-        reads = list(source)
-    else:
-        reads = reads_mod.parse_reads(source)
+    reads = list(source) if isinstance(source, (list, tuple)) else source
+    if streaming:
+        from platanus3_tpu_torch.streaming import assemble_streaming
 
     res = None
     for i, k in enumerate(ks):
@@ -42,9 +49,16 @@ def assemble_multik(source, config: AssemblyConfig, log=None, mesh=None,
         extra = None
         if res is not None:
             extra = [s for s in res.straight_seqs if len(s) >= k]
-        res = assemble(reads, cfg_k, log=log, mesh=mesh,
-                       write_output=write_output and i == len(ks) - 1,
-                       extra_solid=extra or None, device=device)
+        last = i == len(ks) - 1
+        if streaming:
+            res = assemble_streaming(reads, cfg_k, log=log,
+                                     write_output=write_output and last,
+                                     slice_chunks=slice_chunks,
+                                     extra_solid=extra or None, device=device)
+        else:
+            res = assemble(reads, cfg_k, log=log,
+                           write_output=write_output and last,
+                           extra_solid=extra or None, device=device)
         if log:
             log.write(f"multi-k round k={k}: {res.num_straights} straights, "
                       f"{res.num_junctions} junctions")

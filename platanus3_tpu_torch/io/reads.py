@@ -20,9 +20,11 @@ for a fixed-shape machine:
   positions need are inside the chunk.  All downstream device code sees one
   uniform static shape regardless of read-length distribution.
 
-Port of ``platanus3_tpu/io/reads.py``: the numpy path only (the JAX
-package's ctypes ``native/`` loader is not carried over).  The arrays stay
-numpy; the pipeline moves them to its device.
+Port of ``platanus3_tpu/io/reads.py``.  ``load_reads`` goes through the
+C++ loader (``native/``, built with ``g++`` into ``build/native/`` on
+first use) and raises if it cannot; ``use_native=False`` is the numpy
+path, which stays the specification.  The arrays stay numpy; the
+pipeline moves them to its device.
 """
 
 from __future__ import annotations
@@ -108,16 +110,20 @@ def _parse_fastq(path: str) -> Iterable[Tuple[str, str]]:
             yield name.rstrip("\n"), seq
 
 
+def _check_extension(path: str) -> None:
+    ext = os.path.basename(path)[-5:]
+    if ext not in ("fasta", "fastq"):
+        raise ValueError(
+            f"input must end in 'fasta' or 'fastq' (got {path!r})")
+
+
 def parse_reads(path: str) -> List[str]:
     """Parse a FASTA/FASTQ file to a list of sequences.
 
     Enforces the reference's extension contract (``src/Load.cpp:23-30``) --
     but actually raises instead of setting a never-checked error code.
     """
-    ext = os.path.basename(path)[-5:]
-    if ext not in ("fasta", "fastq"):
-        raise ValueError(
-            f"input must end in 'fasta' or 'fastq' (got {path!r})")
+    _check_extension(path)
     with open(path) as f:
         first = f.read(1)
     if first == ">":
@@ -135,9 +141,16 @@ def reads_from_strings(seqs: List[str], k: int, chunk_len: int) -> ReadBatch:
     return chunk_reads(kept, k, chunk_len)
 
 
-def load_reads(path: str, k: int, chunk_len: int) -> ReadBatch:
-    """Load + pack a read file (FASTA/FASTQ)."""
-    return reads_from_strings(parse_reads(path), k, chunk_len)
+def load_reads(path: str, k: int, chunk_len: int,
+               use_native: bool = True) -> ReadBatch:
+    """Load + pack a read file (FASTA/FASTQ): through the C++ loader, or
+    with ``use_native=False`` through the numpy parser.  The two give
+    equal batches; the C++ loader raises rather than falling back."""
+    if not use_native:
+        return reads_from_strings(parse_reads(path), k, chunk_len)
+    _check_extension(path)
+    from platanus3_tpu_torch import native
+    return native.load_reads_native(os.fspath(path), k, chunk_len)
 
 
 def chunk_reads(seqs: List[str], k: int, chunk_len: int) -> ReadBatch:

@@ -41,9 +41,11 @@ import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from platanus3_tpu_torch.ops import bloom, bloom_blocked, count_oa, kmer, solid
-from platanus3_tpu_torch.pipeline import _graph_cap
+from platanus3_tpu_torch import pipeline
 dev = torch.device("cuda")
-rows = _graph_cap(cs.GENOME_LEN)
+# Older trees name the node capacity ``_graph_cap``.
+graph_cap = getattr(pipeline, "graph_cap", None) or pipeline._graph_cap
+rows = graph_cap(cs.GENOME_LEN)
 canon = cs.random_canon(rows, cs.MAIN_K, 2, dev)
 mask = torch.arange(rows, device=dev) < cs.GENOME_LEN
 empty = bloom.make_bloom(cs.MAIN_FILTER_BITS, cs.MAIN_HASHES, device=dev)

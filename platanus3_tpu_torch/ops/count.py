@@ -30,9 +30,10 @@ import torch
 from platanus3_tpu_torch.ops.kmer import MASK32
 
 __all__ = ["KmerTable", "pack_keys", "unpack_keys", "order_keys",
-           "sort_kmers", "count_kmers", "count_positions_table",
-           "count_solid_with_ids", "lookup_id", "lookup_id_join",
-           "merge_tables"]
+           "key_lanes", "run_starts", "run_totals",
+           "sort_kmers", "sort_order_keys", "count_kmers",
+           "count_positions_table", "count_solid_with_ids", "lookup_id",
+           "lookup_id_join", "lookup_join", "merge_tables"]
 
 _SIGN = -(1 << 63)          # int64 with only the sign bit set
 _I64_MAX = (1 << 63) - 1
@@ -79,11 +80,38 @@ def order_keys(kmers: torch.Tensor) -> torch.Tensor:
     return pack_keys(kmers) ^ _SIGN
 
 
+def key_lanes(okey: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Inverse of :func:`order_keys`: order-key words -> ``[..., lanes]``."""
+    return unpack_keys(okey ^ _SIGN, lanes)
+
+
 def _spare_top(k: int | None, lanes: int) -> bool:
     """True when no valid order key's word 0 can equal the int64 maximum,
     so an invalid row can carry it: word 0 is one lane (odd L), or its top
     lane leaves bit 31 unused (2k not a multiple of 32)."""
     return k is not None and (lanes % 2 == 1 or (2 * k) % 32 != 0)
+
+
+def _chained_perm(okey: torch.Tensor) -> torch.Tensor:
+    """Permutation sorting ``[N, W]`` order keys, word 0 first: LSB-first
+    stable sorts, each keeping the order of the less significant words
+    among the rows its own word ties."""
+    perm = None
+    for w in reversed(range(okey.shape[1])):
+        col = okey[:, w] if perm is None else okey[perm, w]
+        _, p = torch.sort(col, stable=True)
+        perm = p if perm is None else perm[p]
+    return perm
+
+
+def sort_order_keys(okey: torch.Tensor):
+    """Sort ``[N, W]`` order keys (all valid) lexicographically.  Returns
+    ``(sorted okey, perm)``; equal keys may come in any order."""
+    if okey.shape[1] == 1:
+        s_key, perm = torch.sort(okey[:, 0])
+        return s_key[:, None], perm
+    perm = _chained_perm(okey)
+    return okey[perm], perm
 
 
 def sort_kmers(kmers: torch.Tensor, invalid: torch.Tensor,
@@ -103,27 +131,23 @@ def sort_kmers(kmers: torch.Tensor, invalid: torch.Tensor,
     if words == 1 and spare:
         s_key, perm = torch.sort(okey[:, 0])
         return s_key[:, None], invalid[perm], perm
-    # LSB-first: each pass is stable, so it keeps the order of the less
-    # significant words among rows its own word ties.
-    perm = None
-    for w in reversed(range(words)):
-        col = okey[:, w] if perm is None else okey[perm, w]
-        _, p = torch.sort(col, stable=True)
-        perm = p if perm is None else perm[p]
+    perm = _chained_perm(okey)
     if not spare:
         _, p = torch.sort(invalid[perm].to(torch.uint8), stable=True)
         perm = perm[p]
     return okey[perm], invalid[perm], perm
 
 
-def _is_first(s_okey: torch.Tensor, s_invalid: torch.Tensor):
+def run_starts(s_okey: torch.Tensor, s_invalid: torch.Tensor):
+    """True at the first row of each run of equal (key, invalid) rows of
+    a sorted table."""
     first = torch.ones_like(s_invalid)
     first[1:] = ((s_okey[1:] != s_okey[:-1]).any(dim=1)
                  | (s_invalid[1:] != s_invalid[:-1]))
     return first
 
 
-def _run_totals(is_first: torch.Tensor, contrib: torch.Tensor):
+def run_totals(is_first: torch.Tensor, contrib: torch.Tensor):
     """Per-row sum of ``contrib`` over the row's run."""
     seg = torch.cumsum(is_first.to(torch.int64), 0) - 1
     totals = torch.zeros(contrib.shape, dtype=torch.int64,
@@ -138,10 +162,10 @@ def _compact_table(s_okey, tab_first, run_total, lanes: int,
     to the input row count with all-ones keys and zero counts."""
     n = s_okey.shape[0]
     dev = s_okey.device
-    first_keys = s_okey[tab_first] ^ _SIGN
+    first_keys = s_okey[tab_first]
     nt = first_keys.shape[0]
     keys = torch.full((n, lanes), MASK32, dtype=torch.int64, device=dev)
-    keys[:nt] = unpack_keys(first_keys, lanes)
+    keys[:nt] = key_lanes(first_keys, lanes)
     counts = torch.zeros((n,), dtype=torch.int64, device=dev)
     if want_counts:
         counts[:nt] = run_total[tab_first]
@@ -162,9 +186,9 @@ def _scan_count(kmers, valid, contributes, k, include_zero: bool,
     l = kmers.shape[1]
     contributes = contributes & valid
     s_okey, s_invalid, perm = sort_kmers(kmers, ~valid, k=k)
-    is_first = _is_first(s_okey, s_invalid)
+    is_first = run_starts(s_okey, s_invalid)
     s_contrib = torch.where(s_invalid, 0, contributes[perm].to(torch.int64))
-    run_total = _run_totals(is_first, s_contrib)
+    run_total = run_totals(is_first, s_contrib)
 
     in_table = ~s_invalid if include_zero else (run_total > 0) & ~s_invalid
     tab_first = is_first & in_table
@@ -286,6 +310,13 @@ def lookup_id_join(table: KmerTable, queries: torch.Tensor,
     return lookup_id(table, queries)
 
 
+def lookup_join(table: KmerTable, queries: torch.Tensor) -> torch.Tensor:
+    """Count of each ``[Q, L]`` query in the table, 0 when absent (the JAX
+    package's ``count.lookup_join``), through :func:`lookup_id`."""
+    nid = lookup_id(table, queries)
+    return torch.where(nid >= 0, table.counts[nid.clamp(min=0)], 0)
+
+
 def merge_tables(a: KmerTable, b: KmerTable) -> KmerTable:
     """Merge two count tables: the union of their valid keys, sorted, with
     summed counts.  Capacity is ``cap_a + cap_b``."""
@@ -295,7 +326,7 @@ def merge_tables(a: KmerTable, b: KmerTable) -> KmerTable:
     row = torch.arange(keys.shape[0], device=keys.device)
     invalid = ~((row < a.size) | ((row >= ka) & (row < ka + b.size)))
     s_okey, s_invalid, perm = sort_kmers(keys, invalid)
-    is_first = _is_first(s_okey, s_invalid)
-    run_total = _run_totals(is_first, torch.where(s_invalid, 0, counts[perm]))
+    is_first = run_starts(s_okey, s_invalid)
+    run_total = run_totals(is_first, torch.where(s_invalid, 0, counts[perm]))
     return _compact_table(s_okey, is_first & ~s_invalid, run_total,
                           keys.shape[1])

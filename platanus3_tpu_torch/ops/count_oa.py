@@ -221,7 +221,7 @@ def oa_to_sorted(table: OAHashTable) -> count_mod.KmerTable:
         keys, torch.zeros(keys.shape[:1], dtype=torch.bool, device=dev))
     size = keys.shape[0]
     out_keys = torch.full((t, lanes), MASK32, dtype=torch.int64, device=dev)
-    out_keys[:size] = count_mod.unpack_keys(s_okey ^ count_mod._SIGN, lanes)
+    out_keys[:size] = count_mod.key_lanes(s_okey, lanes)
     out_counts = torch.zeros((t,), dtype=torch.int64, device=dev)
     out_counts[:size] = table.counts[occ][perm].to(torch.int64)
     return count_mod.KmerTable(

@@ -8,7 +8,7 @@ compares one to one with the JAX package:
             table, per-position node ids, per-read seed k-mers; with
             ``extra_solid`` (multi-k re-seeding, ``graph/multik.py``) the
             k-mers of those sequences are merged into the table
-  compaction: the node table is cut to ``_graph_cap(num_nodes)`` rows
+  compaction: the node table is cut to ``graph_cap(num_nodes)`` rows
   Bloom build (Bloom membership only): the distinct nodes go into the
             packed filter through ``ops/bloom.bloom_add`` -- on a GPU the
             ``bloom_set_bits`` CUDA kernel
@@ -21,10 +21,13 @@ compares one to one with the JAX package:
             again, for ``simplify_rounds`` rounds or to the fixpoint
   stage 4 (device -> host): emission packs, GFA rendering
 
-Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` Queue 1 item: checkpoints, the mesh, tracing (streaming
-is a separate entry point, ``--streaming`` in the CLI).
-The TPU-only staged paths are not ported at all.
+``config.checkpoint_dir`` checkpoints stages 1, 2 and 3 as the JAX
+package does (``utils/checkpoint.py``), and ``config.trace_dir`` wraps the
+run in a ``torch.profiler`` trace (``utils/profiling.device_trace``).
+Streaming is a separate entry point (``streaming.assemble_streaming``,
+``--streaming`` in the CLI).  The mesh (sharding) is not ported yet and
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item; the
+TPU-only staged paths are not ported at all.
 """
 
 from __future__ import annotations
@@ -50,8 +53,9 @@ from platanus3_tpu_torch.ops import bloom as bloom_mod
 from platanus3_tpu_torch.ops import count as count_mod
 from platanus3_tpu_torch.ops import kmer as kmer_mod
 from platanus3_tpu_torch.ops import solid as solid_mod
+from platanus3_tpu_torch.utils import checkpoint as ckpt_mod
 from platanus3_tpu_torch.utils.logging import PipelineLog
-from platanus3_tpu_torch.utils.profiling import StageTimer
+from platanus3_tpu_torch.utils.profiling import StageTimer, device_trace
 
 __all__ = ["assemble", "AssemblyResult"]
 
@@ -72,14 +76,71 @@ class AssemblyResult:
     stats: dict
 
 
-def _unsupported(config: AssemblyConfig):
-    """The first option of ``config`` the port does not run yet."""
-    if config.checkpoint_dir:
-        return "checkpoints (ROADMAP.md Queue 1 item 2)"
-    if config.trace_dir:
-        return "trace_dir: no torch.profiler trace yet (ROADMAP.md Queue 1 " \
-               "item 9)"
-    return None
+MESH_NOT_PORTED = "mesh / sharding is not ported yet (ROADMAP.md Queue 1 " \
+                  "item 1)"
+# Version of the checkpointed layouts (int64 lanes and ids, int32 Bloom
+# words, DBG leaves by field name); part of every checkpoint digest.
+CHECKPOINT_FORMAT = "torch-fmt=1"
+
+
+def check_device(device, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises rather than falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what} on {device}: no CUDA device is "
+                           f"available (pass device='cpu' to run on the CPU)")
+    return device
+
+
+def load_batch(source, config: AssemblyConfig) -> reads_mod.ReadBatch:
+    """A ``ReadBatch`` from a path (the native loader), a list of
+    sequences, or a prepared batch."""
+    if isinstance(source, reads_mod.ReadBatch):
+        return source
+    if isinstance(source, (list, tuple)):
+        return reads_mod.reads_from_strings(list(source), config.k,
+                                            config.chunk_len)
+    return reads_mod.load_reads(source, config.k, config.chunk_len)
+
+
+def checkpointer(config: AssemblyConfig, batch, need_bloom: bool,
+                 extra_solid, *tokens) -> Optional[ckpt_mod.Checkpointer]:
+    """The run's checkpointer (None without ``checkpoint_dir``), keyed by
+    the format, ``tokens``, every knob a checkpointed stage depends on
+    and digests of the reads and the extra-solid sequences."""
+    if not config.checkpoint_dir:
+        return None
+    return ckpt_mod.Checkpointer(
+        config.checkpoint_dir,
+        digest_parts=(CHECKPOINT_FORMAT, *tokens,
+                      config.k, config.short_k, config.cov_threshold,
+                      config.filter_policy, config.filter_bits,
+                      config.num_hashes, config.chunk_len, need_bloom,
+                      batch.num_reads, batch.all_bases,
+                      config.use_exact_membership, config.clip_tips,
+                      config.pop_bubbles, config.simplify_rounds,
+                      config.tip_max_len, config.tip_cov_ratio,
+                      config.bubble_len_ratio, config.bloom_expand_rounds,
+                      ckpt_mod.digest_of(batch.packed),
+                      ckpt_mod.digest_of(np.frombuffer(
+                          "\n".join(extra_solid).encode(), np.uint8))
+                      if extra_solid else ""))
+
+
+def save_stage3(ckpt, dbg, cov, reach_jun, reach_uni, chars) -> None:
+    """The post-simplification graph, coverage, reachability and member
+    chars: a resume goes straight to emission."""
+    ckpt.save("stage3", **ckpt_mod.tuple_arrays("dbg", dbg),
+              **ckpt_mod.tuple_arrays("cov", cov), reach_jun=reach_jun,
+              reach_uni=reach_uni, chars=chars)
+
+
+def load_stage3(ckpt, device):
+    d = ckpt.load("stage3", device)
+    return (ckpt_mod.tuple_from(build_mod.DBG, "dbg", d),
+            ckpt_mod.tuple_from(cov_mod.CoverageResult, "cov", d),
+            d["reach_jun"], d["reach_uni"], d["chars"])
 
 
 def _stage1(packed, valid_len, read_id, start, read_len, cov_threshold, *,
@@ -99,7 +160,7 @@ def _stage1(packed, valid_len, read_id, start, read_len, cov_threshold, *,
     return node_table, seed_fw, has_seed, nid.reshape(c, pk)
 
 
-def _extra_solid_table(seqs, config, device):
+def extra_solid_table(seqs, config, device):
     """K-mer table and seed k-mers of sequences taken as solid whatever
     their read coverage (multi-k re-seeding, ``graph/multik.py``): every
     k-mer of ``seqs`` becomes a node.  Returns ``(KmerTable, seed_fw)``."""
@@ -164,7 +225,7 @@ _GRAPH_CAP_POW2_MAX = 1 << 22
 _GRAPH_CAP_STEP = 1 << 20
 
 
-def _graph_cap(n: int) -> int:
+def graph_cap(n: int) -> int:
     """Node capacity for the graph stage: a power of two up to 2^22
     nodes, above that the next multiple of 2^20 (as the JAX package)."""
     p = max(8, _next_pow2(n))
@@ -173,7 +234,7 @@ def _graph_cap(n: int) -> int:
     return min(p, -(-int(n) // _GRAPH_CAP_STEP) * _GRAPH_CAP_STEP)
 
 
-def _pad_table_keys(keys, size: int, cap: int):
+def pad_table_keys(keys, size: int, cap: int):
     rows, lanes = keys.shape
     if cap <= rows:
         return keys[:cap]
@@ -203,7 +264,7 @@ def _expand_bloom_closure(dbg, nodes, size, bf, config, log):
         merged = count_mod.merge_tables(base, extra)
         del extra, base
         n_new = int(merged.size)
-        nodes = _pad_table_keys(merged.keys, n_new, _graph_cap(n_new))
+        nodes = pad_table_keys(merged.keys, n_new, graph_cap(n_new))
         size = torch.tensor(n_new, dtype=torch.int64, device=nodes.device)
         del merged, dbg
         dbg = run_stage2(nodes, size, bf, k=config.k, use_exact=False)
@@ -219,7 +280,7 @@ _SIMPLIFY_LEAVES = ("size", "left_present", "right_present",
                     "unitig_circular", "num_unitigs")
 
 
-def _simplify(dbg, stage3, nid, bf, config, log, run_stage3, timer):
+def simplify_graph(dbg, stage3, nid, bf, config, log, run_stage3, timer):
     """Tip clipping / bubble popping rounds after stage 3 (``stage3`` is
     its outputs): the drop decision on the host
     (``graph/simplify.decide_drops``), then the graph rebuilt from the
@@ -246,7 +307,7 @@ def _simplify(dbg, stage3, nid, bf, config, log, run_stage3, timer):
         keep = torch.from_numpy(keep).to(dbg.nodes.device)
         kept = dbg.nodes[keep]
         n_keep = kept.shape[0]
-        nodes = _pad_table_keys(kept, n_keep, _graph_cap(n_keep))
+        nodes = pad_table_keys(kept, n_keep, graph_cap(n_keep))
         size = torch.tensor(n_keep, dtype=torch.int64, device=nodes.device)
         del dbg, kept, stage3
         dbg = run_stage2(nodes, size, bf, k=config.k, use_exact=True)
@@ -297,49 +358,35 @@ def assemble(source, config: AssemblyConfig,
     exists for signature parity with the JAX package and is not ported
     yet.
 
-    ``config.profile_stages`` synchronises the device at stage boundaries
-    so ``result.stats['stages']`` is exact; on a CUDA device
-    ``result.stats['peak_bytes']`` holds each stage's peak allocation.
+    ``config.checkpoint_dir`` saves stages 1, 2 and 3 and resumes from
+    the last one found; ``config.trace_dir`` writes a ``torch.profiler``
+    trace of the run there.  ``config.profile_stages`` synchronises the
+    device at stage boundaries so ``result.stats['stages']`` is exact; on
+    a CUDA device ``result.stats['peak_bytes']`` holds each stage's peak
+    allocation.
     """
     if mesh is not None:
-        raise NotImplementedError("mesh / sharding (ROADMAP.md Queue 1 "
-                                  "item 4)")
-    reason = _unsupported(config)
-    if reason:
-        raise NotImplementedError(reason)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"assemble on {device}: no CUDA device is "
-                           f"available (pass device='cpu' to run on the CPU)")
+        raise NotImplementedError(MESH_NOT_PORTED)
+    device = check_device(device, "assemble")
+    with device_trace(config.trace_dir, device):
+        return _assemble_impl(source, config, log, write_output,
+                              extra_solid, device)
+
+
+def _assemble_impl(source, config, log, write_output, extra_solid, device):
     log = log or PipelineLog(config.log_path, echo=False)
     t0 = time.time()
     timer = StageTimer(barriers=config.profile_stages, device=device)
     log.write("Assemble")
 
     # ---- load ----
-    if isinstance(source, reads_mod.ReadBatch):
-        batch = source
-    elif isinstance(source, (list, tuple)):
-        batch = reads_mod.reads_from_strings(list(source), config.k,
-                                             config.chunk_len)
-    else:
-        batch = reads_mod.load_reads(source, config.k, config.chunk_len)
+    batch = load_batch(source, config)
     log.write(f"read file loaded ({batch.num_reads} reads, "
               f"{batch.all_bases} bases, {batch.num_chunks} chunks)")
     timer.mark("load")
 
     if batch.num_reads == 0:
-        lines = ["H\tVN:Z:1.0"]
-        if write_output:
-            with open(config.gfa_path, "w") as f:
-                f.write("\n".join(lines) + "\n")
-        log.write("finish (no reads >= k)")
-        return AssemblyResult(
-            gfa_lines=lines, straight_seqs=[], dbg=None, cov=None,
-            reach_jun=None, reach_uni=None, num_nodes=0, num_junctions=0,
-            num_straights=0,
-            stats={"elapsed_s": time.time() - t0, "all_bases": 0,
-                   "num_reads": 0, "solid_nodes": 0})
+        return empty_result(config, log, t0, write_output)
 
     need_bloom = (not config.use_exact_membership) or config.build_bloom
     if need_bloom:
@@ -360,12 +407,22 @@ def assemble(source, config: AssemblyConfig,
     read_len = dev(batch.read_len)
 
     # ---- stage 1: count + solidity + seeds ----
-    table, seed_fw, has_seed, nid = _stage1(
-        packed, valid_len, read_id, start, read_len, config.cov_threshold,
-        k=config.k, short_k=min(config.short_k, config.k),
-        num_reads=batch.num_reads)
-    if extra_solid:
-        etab, eseed = _extra_solid_table(extra_solid, config, device)
+    ckpt = checkpointer(config, batch, need_bloom, extra_solid)
+    restored1 = ckpt is not None and ckpt.has("stage1")
+    if restored1:
+        # The saved table and seeds include the extra-solid merge.
+        d = ckpt.load("stage1", device)
+        table = ckpt_mod.tuple_from(count_mod.KmerTable, "table", d)
+        seed_fw, has_seed, nid = d["seed_fw"], d["has_seed"], None
+        log.write("stage1 restored from checkpoint")
+    else:
+        table, seed_fw, has_seed, nid = _stage1(
+            packed, valid_len, read_id, start, read_len,
+            config.cov_threshold, k=config.k,
+            short_k=min(config.short_k, config.k),
+            num_reads=batch.num_reads)
+    if extra_solid and not restored1:
+        etab, eseed = extra_solid_table(extra_solid, config, device)
         table = count_mod.merge_tables(table, etab)
         del etab
         nid = None  # node ranks shifted; stage 3 looks the positions up
@@ -374,12 +431,19 @@ def assemble(source, config: AssemblyConfig,
             (eseed.shape[0],), dtype=torch.bool, device=device)])
         log.write(f"extra-solid merge: {len(extra_solid)} seqs")
     num_nodes = int(table.size)
+    if ckpt is not None and not restored1:
+        # Only the valid prefix: the compaction below pads again.
+        n_keep = max(num_nodes, 1)
+        ckpt.save("stage1", **ckpt_mod.tuple_arrays("table", table._replace(
+            keys=table.keys[:n_keep], counts=table.counts[:n_keep])),
+            seed_fw=seed_fw, has_seed=has_seed)
+        log.write("stage1 checkpoint saved")
     log.write(f"counted short kmer; solid nodes={num_nodes}")
     log.metric("seed kmer num", int(has_seed.sum()))
     timer.mark("stage1_count_solid")
 
     # ---- compact node table to the graph capacity ----
-    nodes = _pad_table_keys(table.keys, num_nodes, _graph_cap(num_nodes))
+    nodes = pad_table_keys(table.keys, num_nodes, graph_cap(num_nodes))
     del table
     size = torch.tensor(num_nodes, dtype=torch.int64, device=device)
     if need_bloom:
@@ -387,15 +451,26 @@ def assemble(source, config: AssemblyConfig,
         timer.mark("bloom_build")
 
     # ---- stage 2: graph ----
-    dbg = run_stage2(nodes, size, bf, k=config.k,
-                     use_exact=config.use_exact_membership)
+    restored3 = ckpt is not None and ckpt.has("stage3")
     closure_rounds = 0
-    if not config.use_exact_membership and config.bloom_expand_rounds:
-        dbg, nodes, size, closure_rounds = _expand_bloom_closure(
-            dbg, nodes, size, bf, config, log)
-        if closure_rounds:
-            # Node rows shifted; stage 3 looks the positions up again.
-            nid = None
+    if restored3:
+        dbg = None  # the stage-3 checkpoint holds the final graph
+    elif ckpt is not None and ckpt.has("stage2"):
+        dbg = ckpt_mod.tuple_from(build_mod.DBG, "dbg",
+                                  ckpt.load("stage2", device))
+        log.write("stage2 restored from checkpoint")
+    else:
+        dbg = run_stage2(nodes, size, bf, k=config.k,
+                         use_exact=config.use_exact_membership)
+        if not config.use_exact_membership and config.bloom_expand_rounds:
+            dbg, nodes, size, closure_rounds = _expand_bloom_closure(
+                dbg, nodes, size, bf, config, log)
+            if closure_rounds:
+                # Node rows shifted; stage 3 looks the positions up again.
+                nid = None
+        if ckpt is not None:
+            ckpt.save("stage2", **ckpt_mod.tuple_arrays("dbg", dbg))
+            log.write("stage2 checkpoint saved")
     log.write("de bruijn graph loaded")
     timer.mark("stage2_graph")
 
@@ -406,17 +481,53 @@ def assemble(source, config: AssemblyConfig,
         return _stage3(dbg, packed, valid_len, start, read_len, prev_base,
                        next_base, seed_fw, has_seed, nid, k=config.k)
 
-    stage3 = run_stage3(dbg, nid)
-    log.write("count node coverage")
+    if restored3:
+        dbg, *stage3 = load_stage3(ckpt, device)
+        log.write("stage3 restored from checkpoint (skip to emission)")
+    else:
+        stage3 = run_stage3(dbg, nid)
+        log.write("count node coverage")
     timer.mark("stage3_coverage")
 
     simplify_drops = 0
-    if config.clip_tips or config.pop_bubbles:
-        dbg, stage3, simplify_drops = _simplify(dbg, stage3, nid, bf, config,
-                                                log, run_stage3, timer)
+    if (config.clip_tips or config.pop_bubbles) and not restored3:
+        dbg, stage3, simplify_drops = simplify_graph(
+            dbg, stage3, nid, bf, config, log, run_stage3, timer)
         timer.mark("simplify")
     cov, reach_jun, reach_uni, chars = stage3
+    if ckpt is not None and not restored3:
+        save_stage3(ckpt, dbg, cov, reach_jun, reach_uni, chars)
+        log.write("stage3 checkpoint saved")
 
+    return finish(config, log, timer, t0, batch, write_output, dbg, cov,
+                   reach_jun, reach_uni, chars, device,
+                   stage4="stage4_emit", solid_nodes=num_nodes,
+                   closure_rounds=closure_rounds,
+                   simplify_drops=simplify_drops)
+
+
+def empty_result(config, log, t0, write_output) -> AssemblyResult:
+    """The header-only GFA of a read set without a read of k bases or
+    more (the reference drops shorter reads, ``src/Load.cpp:59,86``)."""
+    lines = ["H\tVN:Z:1.0"]
+    if write_output:
+        with open(config.gfa_path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    log.write("finish (no reads >= k)")
+    return AssemblyResult(
+        gfa_lines=lines, straight_seqs=[], dbg=None, cov=None,
+        reach_jun=None, reach_uni=None, num_nodes=0, num_junctions=0,
+        num_straights=0,
+        stats={"elapsed_s": time.time() - t0, "all_bases": 0,
+               "num_reads": 0, "solid_nodes": 0})
+
+
+def finish(config, log, timer, t0, batch, write_output, dbg, cov,
+            reach_jun, reach_uni, chars, device, *, stage4, solid_nodes,
+            closure_rounds, simplify_drops) -> AssemblyResult:
+    """Stage 4 and the result, shared with the streaming pipeline: the
+    seed-restriction override, the emission packs, the GFA and the
+    ``stats`` log line."""
     if not config.restrict_to_seeds:
         reach_jun = torch.ones_like(reach_jun)
         reach_uni = torch.ones_like(reach_uni)
@@ -427,7 +538,7 @@ def assemble(source, config: AssemblyConfig,
     if write_output:
         with open(config.gfa_path, "w") as f:
             f.write("\n".join(lines) + "\n")
-    timer.mark("stage4_emit")
+    timer.mark(stage4)
     n_s = sum(1 for ln in lines if ln.startswith("S\tStraight"))
     n_j = sum(1 for ln in lines if ln.startswith("S\tJunction"))
     log.write(f"finish ({time.time() - t0:.2f}s, {n_s} straights, "
@@ -436,7 +547,7 @@ def assemble(source, config: AssemblyConfig,
              "k": config.k,
              "all_bases": batch.all_bases,
              "num_reads": batch.num_reads,
-             "solid_nodes": num_nodes,
+             "solid_nodes": solid_nodes,
              "graph_nodes": int(dbg.size),
              "straights": n_s,
              "junctions": n_j,

@@ -18,7 +18,8 @@ Half of the reads are reverse-complemented (real libraries sample both
 strands; exercises canonicalization everywhere).
 
 Port of ``platanus3_tpu/sim.py`` (numpy; the same seed gives the same
-genomes and reads).  ``genome_kmer_table`` is not carried over.
+genomes and reads).  ``genome_kmer_table``, the truth set of the
+threshold sweep, runs on a torch device with the pipeline's ops.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 
 __all__ = ["random_genome", "simulate_reads", "mutate_genome",
            "plant_repeats", "gc_skewed_genome", "plant_homopolymers",
-           "plant_tandem_repeats", "realistic_genome"]
+           "plant_tandem_repeats", "realistic_genome", "genome_kmer_table"]
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _COMP = str.maketrans("ACGT", "TGCA")
@@ -211,3 +212,30 @@ def realistic_genome(length: int, seed: int = 0, gc: float = 0.6,
         g = plant_repeats(g, dispersed_repeat_len,
                           max(1, int(dispersed_per_mb * mb)), seed=seed + 3)
     return g
+
+
+def genome_kmer_table(genome: str, k: int, chunk_len: int = 4096,
+                      device="cuda"):
+    """Exact canonical k-mer count table of a genome string on ``device``
+    (the TRUTH set for the precision and recall of the solidity filter),
+    with the pipeline's ops.  Raises on ``cuda`` without a card."""
+    import torch
+    from platanus3_tpu_torch import pipeline
+    from platanus3_tpu_torch.io import reads as reads_mod
+    from platanus3_tpu_torch.ops import count as count_mod
+    from platanus3_tpu_torch.ops import kmer as kmer_mod
+    from platanus3_tpu_torch.ops import solid as solid_mod
+
+    device = pipeline.check_device(device, "genome_kmer_table")
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
+
+    batch = reads_mod.reads_from_strings([genome], k, chunk_len)
+    bases = kmer_mod.unpack_bases(dev(batch.packed))
+    fw, valid = kmer_mod.extract_kmers(bases, dev(batch.valid_len), k)
+    canon, _ = kmer_mod.canonical(fw, k)
+    owned = solid_mod.owned_mask(dev(batch.start), dev(batch.read_len),
+                                 batch.stride, fw.shape[1], k, k) & valid
+    l = canon.shape[-1]
+    return count_mod.count_kmers(canon.reshape(-1, l), owned.reshape(-1))

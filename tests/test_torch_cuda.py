@@ -1,5 +1,6 @@
 """Tests that need a CUDA card: the port's kernels against their plain
-PyTorch versions, and a GPU assembly against the CPU one.
+PyTorch versions, and GPU assemblies (single shot, multi-k, streaming)
+and the threshold sweep against the CPU ones.
 
 They skip where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and without
@@ -14,6 +15,7 @@ import torch
 from platanus3_tpu_torch import sim
 from platanus3_tpu_torch.config import AssemblyConfig
 from platanus3_tpu_torch.graph.multik import assemble_multik
+from platanus3_tpu_torch.io.reads import reads_from_strings
 from platanus3_tpu_torch.ops import bloom as TB
 from platanus3_tpu_torch.ops import bloom_blocked as TBB
 from platanus3_tpu_torch.ops import count as TC
@@ -21,6 +23,8 @@ from platanus3_tpu_torch.ops import count_oa as TOA
 from platanus3_tpu_torch.ops import hashing as TH
 from platanus3_tpu_torch.ops import kmer as TK
 from platanus3_tpu_torch.pipeline import assemble
+from platanus3_tpu_torch.streaming import assemble_streaming
+from platanus3_tpu_torch.sweep import solid_threshold_sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -226,3 +230,39 @@ def test_gpu_multik_simplify_equals_cpu(cuda):
     cpu = assemble_multik(reads, cfg, write_output=False, device="cpu")
     assert gpu.gfa_lines == cpu.gfa_lines
     assert gpu.num_straights >= 1
+
+
+def test_gpu_streaming_equals_cpu(cuda):
+    """Streaming in Bloom membership, 16 chunks a slice, one
+    ``bloom_set_bits`` launch a slice: the card's GFA equals the CPU's,
+    and multi-k through streaming too."""
+    genome = sim.random_genome(6000, seed=11)
+    reads = sim.simulate_reads(genome, coverage=20, read_len=500, seed=12,
+                               sub_rate=0.01)
+    cfg = AssemblyConfig(k=25, use_exact_membership=False,
+                         filter_bits=1 << 16, num_hashes=3, chunk_len=256,
+                         log_path=None)
+    slices = -(-reads_from_strings(reads, 25, 256).num_chunks // 16)
+    before = TB.bloom_add.kernel_launches
+    gpu = assemble_streaming(reads, cfg, write_output=False,
+                             slice_chunks=16, device=cuda)
+    assert TB.bloom_add.kernel_launches == before + slices
+    cpu = assemble_streaming(reads, cfg, write_output=False,
+                             slice_chunks=16, device="cpu")
+    assert gpu.gfa_lines == cpu.gfa_lines and gpu.num_straights >= 1
+    mk = AssemblyConfig(k=25, k_list=(25, 33), clip_tips=True,
+                        chunk_len=256, log_path=None)
+    assert assemble_multik(reads, mk, write_output=False, streaming=True,
+                           slice_chunks=16, device=cuda).gfa_lines == \
+        assemble_multik(reads, mk, write_output=False, streaming=True,
+                        slice_chunks=16, device="cpu").gfa_lines
+
+
+def test_gpu_sweep_equals_cpu(cuda):
+    genome = sim.random_genome(3000, seed=10)
+    reads = sim.simulate_reads(genome, coverage=30, read_len=300, seed=11,
+                               sub_rate=0.01)
+    cfg = AssemblyConfig(k=25, chunk_len=256, log_path=None)
+    args = (reads, cfg, range(1, 8))
+    assert solid_threshold_sweep(*args, truth_genome=genome, device=cuda) \
+        == solid_threshold_sweep(*args, truth_genome=genome, device="cpu")

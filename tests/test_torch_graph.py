@@ -101,7 +101,7 @@ def test_graph_stages_equal(stage1_cache, name, membership):
 
     jbf = JB.make_bloom(1 << BLOOM[0], BLOOM[1])
     ttable = interop.from_numpy_table(stage1_cache[name][7])
-    tnodes = TP._pad_table_keys(ttable.keys, n, TP._graph_cap(n))
+    tnodes = TP.pad_table_keys(ttable.keys, n, TP.graph_cap(n))
     assert np.array_equal(_np(nodes), tnodes.numpy())
     tsize = ttable.size
     tbf = TB.make_bloom(1 << BLOOM[0], BLOOM[1])

@@ -134,16 +134,6 @@ def test_cli_bloom_run_matches_jax(tmp_path):
     assert (tmp_path / "contigs.fasta").read_text().startswith(">Straight_1")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(checkpoint_dir="ck"), dict(trace_dir="tr"),
-])
-def test_unported_options_raise(kw):
-    cfg = TConfig(chunk_len=256, log_path=None, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_assemble([rand_genome(80)] * 2, cfg, write_output=False,
-                   device="cpu")
-
-
 def test_assemble_defaults_to_the_card(monkeypatch):
     """The library entry point runs on the card unless asked for the CPU,
     and without a card it raises instead of falling back."""
@@ -155,7 +145,7 @@ def test_assemble_defaults_to_the_card(monkeypatch):
                    TConfig(chunk_len=256, log_path=None), write_output=False)
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--streaming"])
+@pytest.mark.parametrize("flag", ["--mesh"])
 def test_unported_cli_flags_raise(tmp_path, flag):
     fasta = tmp_path / "r.fasta"
     fasta.write_text(">a\n" + rand_genome(80) + "\n")

@@ -144,12 +144,6 @@ def test_cli_k_list_with_simplification(tmp_path):
     assert "multi-k round k=48" in text and "extra-solid merge" in text
 
 
-def test_multik_streaming_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        t_multik(["ACGT" * 20], TConfig(k_list=(25, 31), log_path=None),
-                 write_output=False, streaming=True, device="cpu")
-
-
 def tandem_reads():
     """A 132 bp tandem array (unit 11) between unique flanks: at k = 25 the
     array is a loop X -> Y -> X in the graph."""
