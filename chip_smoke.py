@@ -14,8 +14,14 @@ Phases, each of which ends the run with a nonzero exit on failure:
    k = 128 (four and eight lanes) and with 2^32, 2^33 and 2^35 bits (the
    wide positions), at the chromosome run's per-slice shape (4096 x 4072
    rows, k = 25, 2^33 bits, phase 12), and at filters from 2^5 to 2^35
-   bits; the words must be bit-equal and the input filter unmodified;
-   times from CUDA events, for the whole call and for each of its passes;
+   bits; after phase 5, at the shapes one rank of phases 13-15 gives it:
+   the node shard of sharded stage 1 (a quarter of the main reads' owned
+   k = 32 positions, every one taken as solid, a quarter of the genome's
+   length masked in, 2^30 bits), a rank's block of an E. coli streaming
+   slice (512 x 993 rows, k = 32, 2^30 bits) and of a chromosome slice
+   (1024 x 4072 rows, k = 25, 2^33 bits); the words must be bit-equal and
+   the input filter unmodified; times from CUDA events, for the whole
+   call and for each of its passes;
 4. CPU/GPU parity: a 20 kb genome at 25x in Bloom mode with a filter small
    enough that the false-positive closure runs; then the same reads
    through multi-k (k = 32, 64) with tips clipped and bubbles popped in a
@@ -26,7 +32,12 @@ Phases, each of which ends the run with a nonzero exit on failure:
    run on the card with ``--checkpoint-dir`` is killed after its
    ``spass2`` checkpoint (``P3_FAULT_AFTER``, exit code 137) in a
    subprocess and resumed in another; its GFA must equal an uncrashed
-   run's;
+   run's.  Then the same three runs with a mesh of 4 ranks on the card
+   (``python -m torch.distributed.run --nproc-per-node 4 chip_smoke.py
+   --rank-job ...``, the library entry points with ``mesh=``): each GFA
+   must equal its run without the mesh line for line, with
+   ``bloom_set_bits`` launched on every rank (once a rank in single shot,
+   once a rank a round in multi-k, once a rank a slice in streaming);
 5. the main run's reads: a generated genome of E. coli K-12 MG1655's
    length and GC (4,641,652 bp, 50.8 %; NCBI NC_000913.3), 20x of 10 kb
    reads with 0.1 % substitutions (BASELINE config 1), chunked as the main
@@ -82,13 +93,42 @@ Phases, each of which ends the run with a nonzero exit on failure:
     8589934592``; the straights must cover >= 0.9 of the genome, >= 0.9
     of their bases as exact genome substrings, with one ``bloom_set_bits``
     launch a slice and a peak below 80 GB of device memory; prints every
-    span and its peak, nodes, straights, junctions and N50.
+    span and its peak, nodes, straights, junctions and N50;
+13. sharded main run: phase 8's arguments plus ``--mesh`` through the CLI
+    under ``torch.distributed.run`` with 4 ranks on the card (gloo: the
+    ranks share one card, which NCCL refuses); the GFA must equal phase
+    8's, with at least one ``bloom_set_bits`` launch on every rank; prints
+    the backend, each rank's device, the bytes each route sent, each
+    rank's stage-1 span and peak device memory, their sum and the CLI
+    wall time;
+14. sharded E. coli streaming: phase 10's arguments plus ``--mesh`` with
+    4 ranks and the sharded tables' capacities (``--short-cap-log2 24
+    --node-cap-log2 23``: the defaults, sized from the slice as in the
+    JAX package, are too small for these reads and raise); the GFA must
+    equal phase 10's, with one ``bloom_set_bits`` launch a rank a slice;
+15. sharded chromosome-sized streaming (BASELINE config 5 with its sharded
+    table): phase 12's FASTA and arguments plus ``--mesh`` with 4 ranks
+    and ``--short-cap-log2 27 --node-cap-log2 26``;
+    the GFA must equal phase 12's, one launch a rank a slice, the summed
+    peak below 80 GB; prints each rank's peak and the sum, the bytes
+    routed in passes 1 and 2 and the CLI wall time.
 
-Phases 6-12 each drive their path with the kernels' launch counts set to
-0 just before and read just after; launches made to compare a kernel with
-its plain version or to time it are not counted.  The second-to-last line
-is the kernels' JSON (times from CUDA events, bounds from this run's
-shapes), the last line ``{"ok": true, "device": {...}}``.
+Phases 6-15 each drive their path with the kernels' launch counts set to
+0 just before and read just after (a mesh's ranks are fresh processes,
+whose counts start at 0, and report them in the run's stats line);
+launches made to compare a kernel with its plain version or to time it
+are not counted.  Phases 13-15 also print each rank's memory held by
+its caching allocator, their sum, and the most memory in use on the card
+during the run (every process).  Each rank launch runs under a timeout,
+and every process of it is killed if it runs out; when a launch fails,
+its message ends with the end of every rank's standard error.  The
+second-to-last line is the
+kernels' JSON (times from CUDA events, bounds from this run's shapes), the
+last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --rank-job NAME OUT`` is one rank of a phase-4
+mesh run, and ``--rank-cli JSON`` one rank of the CLI with the JSON list
+of arguments (phases 13-15); the script starts both itself.
 """
 
 from __future__ import annotations
@@ -96,9 +136,11 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -128,6 +170,20 @@ CHR21_ARGS = ["--streaming", "-k", "25", "--cov-threshold", "3",
 CHR21_SLICE_CHUNKS = 4096
 SLICE_ROWS = 4096 * (4096 - 25 + 1)
 ECOLI_SLICE_CHUNKS = 2048
+# The sharded tables' capacities of phases 14 and 15 (log2 of the whole
+# table; a rank holds a quarter).  JAX's defaults, 4x and 2x a slice's
+# short positions, are below these read sets' distinct short k-mers and
+# solid nodes (E. coli: 2^22 node rows for 4.5M nodes; chr21: 2^26 short
+# rows for about 70M distinct short k-mers), and the run would raise the
+# sharded overflow, as the JAX package's would.
+ECOLI_MESH_CAPS = ["--short-cap-log2", "24", "--node-cap-log2", "23"]
+CHR21_MESH_CAPS = ["--short-cap-log2", "27", "--node-cap-log2", "26"]
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 600
+# The launcher's variables, dropped from the environment a launch starts in.
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT", "GROUP_RANK",
+                "TORCHELASTIC_RUN_ID")
 SWEEP_THRESHOLDS = (1, 2, 3, 4, 6, 8)
 DEVICE_BYTES_LIMIT = 80e9
 # Events of the device in a torch.profiler Chrome trace; bloom_set_bits
@@ -303,6 +359,39 @@ def bloom_slice_shape():
             "library_ms": None, "passes": passes}
 
 
+def bloom_rank_shapes(owned_positions: int):
+    """``bloom_set_bits`` at the shapes one rank of phases 13-15 gives it
+    (10 hashes).  The node shard of sharded stage 1 holds the solid owned
+    k-mers routed to its rank: a quarter of ``owned_positions`` (every
+    position taken as solid, so at least the run's rows), its distinct
+    nodes (about a quarter of the genome) masked in.  A streaming rank
+    inserts its block of each slice, every row masked in here.  Returns
+    one measurement dict a shape."""
+    ecoli_rows = ECOLI_SLICE_CHUNKS // MESH_RANKS * (CHUNK_LEN - MAIN_K + 1)
+    chr21_rows = SLICE_ROWS // MESH_RANKS
+    out = []
+    for i, (what, rows, masked, k, lb) in enumerate((
+            ("sharded main node shard", -(-owned_positions // MESH_RANKS),
+             -(-GENOME_LEN // MESH_RANKS), MAIN_K, 30),
+            ("sharded E. coli streaming rank slice", ecoli_rows, ecoli_rows,
+             MAIN_K, 30),
+            ("sharded chr21 streaming rank slice", chr21_rows, chr21_rows,
+             25, 33))):
+        err, ms, plain_ms, bound, passes = kernel_vs_plain(
+            rows, masked, k, lb, MAIN_HASHES, seed=6 + i, reps=10,
+            plain_reps=3)
+        shape = f"{what}: {rows} rows, {masked} masked in, k={k}, 2^{lb} " \
+                f"bits, {MAIN_HASHES} hashes"
+        log(f"kernel rank shape ({shape}): max_abs_err {err}, kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms")
+        log(f"kernel rank shape {what} passes: {fmt_passes(passes)}")
+        out.append({"shape": shape, "k": k, "log2_bits": lb,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "library_ms": None,
+                    "passes": passes})
+    return out
+
+
 def bloom_sizes_check(rows=200_000, k=25, hashes=4) -> int:
     """``bloom_set_bits`` at each size of BLOOM_CHECK_LOG2_BITS, from one
     word (a region smaller than 64 KB) to 2^31 bits: half the rows onto an
@@ -334,22 +423,39 @@ def bloom_sizes_check(rows=200_000, k=25, hashes=4) -> int:
     return 0
 
 
+# Phase 4's configurations.  2^18 bits, 2 hashes: ~2 % false positives on
+# the 23k nodes of the parity reads, so the closure adds phantom nodes for
+# a few rounds and then converges.
+PARITY_CFG = dict(k=25, use_exact_membership=False, filter_bits=1 << 18,
+                  num_hashes=2, log_path=None)
+MULTIK_PARITY_CFG = dict(k=32, k_list=(32, 64), clip_tips=True,
+                         pop_bubbles=True, use_exact_membership=False,
+                         filter_bits=1 << 32, log_path=None)
+PARITY_SLICE_CHUNKS = 8
+# The sharded tables' capacities of the mesh streaming parity run.  The
+# defaults (JAX's: 4x and 2x a slice's short positions) suit slices of
+# thousands of chunks; at 8 chunks a slice they are 8192 short k-mers a
+# rank, far below these reads' ~10^5, and the run raises the overflow.
+PARITY_MESH_CAPS = dict(short_cap=1 << 20, node_cap=1 << 18)
+
+
+def parity_reads():
+    """Phase 4's reads: a 20 kb genome at 25x, 1 % substitutions."""
+    from platanus3_tpu_torch import sim
+    genome = sim.random_genome(20_000, seed=7)
+    return sim.simulate_reads(genome, coverage=25, read_len=1000, seed=8,
+                              sub_rate=0.01)
+
+
 def parity_run():
     """Bloom-mode assembly of a small read set on the card and on the CPU;
     the GFA line lists must be identical."""
-    from platanus3_tpu_torch import sim
     from platanus3_tpu_torch.config import AssemblyConfig
     from platanus3_tpu_torch.pipeline import assemble
-    genome = sim.random_genome(20_000, seed=7)
-    reads = sim.simulate_reads(genome, coverage=25, read_len=1000, seed=8,
-                               sub_rate=0.01)
-    # 2^18 bits, 2 hashes: ~2 % false positives on these 23k nodes, so the
-    # closure adds phantom nodes for a few rounds and then converges.
-    cfg = dict(k=25, use_exact_membership=False, filter_bits=1 << 18,
-               num_hashes=2, log_path=None)
-    gpu = assemble(reads, AssemblyConfig(**cfg), write_output=False,
+    reads = parity_reads()
+    gpu = assemble(reads, AssemblyConfig(**PARITY_CFG), write_output=False,
                    device="cuda")
-    cpu = assemble(reads, AssemblyConfig(**cfg), write_output=False,
+    cpu = assemble(reads, AssemblyConfig(**PARITY_CFG), write_output=False,
                    device="cpu")
     if gpu.gfa_lines != cpu.gfa_lines:
         raise AssertionError("GPU and CPU GFA differ")
@@ -358,21 +464,25 @@ def parity_run():
     return gpu
 
 
+def parity_slices(reads) -> int:
+    from platanus3_tpu_torch.config import AssemblyConfig
+    from platanus3_tpu_torch.io import reads as reads_mod
+    cfg = AssemblyConfig(**PARITY_CFG)
+    chunks = reads_mod.reads_from_strings(reads, cfg.k,
+                                          cfg.chunk_len).num_chunks
+    return -(-chunks // PARITY_SLICE_CHUNKS)
+
+
 def multik_parity_run():
     """The parity run's reads through multi-k (k = 32, then 64) with tips
     clipped and bubbles popped, Bloom membership in a 2^32-bit filter (the
     wide positions), on the card and on the CPU; the GFA line lists must be
     identical and the card must launch ``bloom_set_bits`` once a round."""
-    from platanus3_tpu_torch import sim
     from platanus3_tpu_torch.config import AssemblyConfig
     from platanus3_tpu_torch.graph.multik import assemble_multik
     from platanus3_tpu_torch.ops import bloom
-    genome = sim.random_genome(20_000, seed=7)
-    reads = sim.simulate_reads(genome, coverage=25, read_len=1000, seed=8,
-                               sub_rate=0.01)
-    cfg = AssemblyConfig(k=32, k_list=(32, 64), clip_tips=True,
-                         pop_bubbles=True, use_exact_membership=False,
-                         filter_bits=1 << 32, log_path=None)
+    reads = parity_reads()
+    cfg = AssemblyConfig(**MULTIK_PARITY_CFG)
     before = bloom.bloom_add.kernel_launches
     gpu = assemble_multik(reads, cfg, write_output=False, device="cuda")
     if bloom.bloom_add.kernel_launches != before + 2:
@@ -837,26 +947,21 @@ def streaming_parity_run(workdir: Path):
     Bloom mode with the small filter, on the card and on the CPU; then a
     crash after ``spass2`` and a resume on the card, in subprocesses.
     Returns (slices, card GFA lines)."""
-    from platanus3_tpu_torch import cli, sim
+    from platanus3_tpu_torch import cli
     from platanus3_tpu_torch.config import AssemblyConfig
-    from platanus3_tpu_torch.io import reads as reads_mod
     from platanus3_tpu_torch.ops import bloom
     from platanus3_tpu_torch.streaming import assemble_streaming
-    genome = sim.random_genome(20_000, seed=7)
-    reads = sim.simulate_reads(genome, coverage=25, read_len=1000, seed=8,
-                               sub_rate=0.01)
-    cfg = AssemblyConfig(k=25, use_exact_membership=False,
-                         filter_bits=1 << 18, num_hashes=2, log_path=None)
-    chunks = reads_mod.reads_from_strings(reads, 25, cfg.chunk_len).num_chunks
-    slices = -(-chunks // 8)
+    reads = parity_reads()
+    cfg = AssemblyConfig(**PARITY_CFG)
+    slices = parity_slices(reads)
     before = bloom.bloom_add.kernel_launches
-    gpu = assemble_streaming(reads, cfg, write_output=False, slice_chunks=8,
-                             device="cuda")
+    gpu = assemble_streaming(reads, cfg, write_output=False,
+                             slice_chunks=PARITY_SLICE_CHUNKS, device="cuda")
     if bloom.bloom_add.kernel_launches - before != slices:
         raise AssertionError("streaming parity: not one bloom_set_bits "
                              "launch a slice")
-    cpu = assemble_streaming(reads, cfg, write_output=False, slice_chunks=8,
-                             device="cpu")
+    cpu = assemble_streaming(reads, cfg, write_output=False,
+                             slice_chunks=PARITY_SLICE_CHUNKS, device="cpu")
     if gpu.gfa_lines != cpu.gfa_lines:
         raise AssertionError("streaming parity: GPU and CPU GFA differ")
     if gpu.num_straights < 1:
@@ -985,8 +1090,8 @@ def sweep_run(genome: str, fasta: Path):
 
 
 def chr21_run(workdir: Path):
-    """The chromosome-sized streaming run (phase 12).  Returns
-    (launches, stats)."""
+    """The chromosome-sized streaming run (phase 12).  Returns (launches,
+    slices, its FASTA, a copy of its GFA); phase 15 deletes the FASTA."""
     from platanus3_tpu_torch import sim
     t = time.time()
     genome = sim.random_genome(CHR21_GENOME_LEN, seed=0)
@@ -1004,7 +1109,6 @@ def chr21_run(workdir: Path):
     slices = -(-chunks // CHR21_SLICE_CHUNKS)
     del reads
     wall, launches, gfa, (stats,) = cli_run(workdir, fasta, CHR21_ARGS)
-    fasta.unlink()
     peak = max(stats.get("peak_bytes", {}).values(), default=0)
     log(f"chr21: cli wall {wall:.3f} s, {chunks} chunks in {slices} slices, "
         f"bloom_set_bits launches {launches}, solid nodes "
@@ -1020,10 +1124,240 @@ def chr21_run(workdir: Path):
                              f"for {slices} slices")
     if peak >= DEVICE_BYTES_LIMIT:
         raise AssertionError(f"chr21: peak device memory {peak} bytes")
-    return launches, stats
+    kept = workdir / "chr21.gfa"
+    shutil.copyfile(gfa, kept)
+    return launches, slices, fasta, kept
+
+
+def run_ranks(args, what: str, timeout: float = MESH_TIMEOUT_S) -> float:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 4
+    args`` from the repo root, in a session of its own: when it fails or
+    outlives ``timeout`` every process of the session is killed and the
+    run fails.  Each rank's standard error is also kept in a file of its
+    own, and a failure ends its message with the end of every rank's, so
+    the rank's own traceback is not lost behind the launcher's summary.
+    Returns the wall time in seconds."""
+    env = {key: v for key, v in os.environ.items() if key not in LAUNCHER_ENV}
+    env["PYTHONPATH"] = str(ROOT)
+    with tempfile.TemporaryDirectory() as logs:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(MESH_RANKS), "--log-dir", logs,
+               "--tee", "2", *args]
+        t = time.time()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            _, err = proc.communicate(timeout=timeout)
+            failed = (f"torch.distributed.run exit code {proc.returncode}"
+                      if proc.returncode != 0 else None)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            _, err = proc.communicate()
+            failed = f"ranks still running after {timeout} s"
+        wall = time.time() - t
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)   # nothing of the run stays
+        except ProcessLookupError:
+            pass
+        if failed:
+            ranks = "".join(
+                f"\n--- rank {p.parent.name}, end of its standard error:\n"
+                + p.read_text(errors="replace")[-3000:]
+                for p in sorted(Path(logs).glob("**/stderr.log"),
+                                key=lambda p: p.parent.name))
+            raise AssertionError(f"{what}: {failed}\n{err[-1500:]}{ranks}")
+    return wall
+
+
+def rank_job(name: str, out: Path) -> int:
+    """One rank of a phase-4 mesh run (under ``torch.distributed.run``):
+    the library entry point with ``mesh=`` on the card; rank 0 writes the
+    GFA lines, the stats and every rank's ``bloom_set_bits`` launches."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+    from platanus3_tpu_torch.config import AssemblyConfig
+    from platanus3_tpu_torch.graph.multik import assemble_multik
+    from platanus3_tpu_torch.ops import bloom
+    from platanus3_tpu_torch.parallel import sharded
+    from platanus3_tpu_torch.pipeline import assemble
+    from platanus3_tpu_torch.streaming import assemble_streaming
+    mesh = sharded.make_mesh("cuda")
+    reads = parity_reads()
+    bloom.bloom_add.kernel_launches = 0
+    if name == "single shot":
+        res = assemble(reads, AssemblyConfig(**PARITY_CFG),
+                       write_output=False, mesh=mesh)
+    elif name == "multi-k":
+        res = assemble_multik(reads, AssemblyConfig(**MULTIK_PARITY_CFG),
+                              write_output=False, mesh=mesh)
+    else:
+        res = assemble_streaming(reads, AssemblyConfig(**PARITY_CFG),
+                                 write_output=False,
+                                 slice_chunks=PARITY_SLICE_CHUNKS, mesh=mesh,
+                                 **PARITY_MESH_CAPS)
+    launches = sharded.all_gather_object(mesh,
+                                         bloom.bloom_add.kernel_launches)
+    if mesh.is_root:
+        out.write_text(json.dumps({"gfa": res.gfa_lines, "stats": res.stats,
+                                   "launches": launches}))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_parity_runs(workdir: Path, single: dict) -> dict:
+    """Phase 4's three runs with a mesh of 4 ranks on the card; each GFA
+    must equal its run without the mesh (``single``: name -> GFA lines).
+    Returns name -> every rank's launches."""
+    expect = {"single shot": 1, "multi-k": len(MULTIK_PARITY_CFG["k_list"]),
+              "streaming": parity_slices(parity_reads())}
+    launches = {}
+    for name, lines in single.items():
+        out = workdir / "rank_job.json"
+        wall = run_ranks([str(ROOT / "chip_smoke.py"), "--rank-job", name,
+                          str(out)], f"mesh parity {name}")
+        got = json.loads(out.read_text())
+        per_rank = got["launches"]
+        log(f"mesh parity {name}: {MESH_RANKS} ranks on "
+            f"{torch_cards()} card(s), backend "
+            f"{got['stats']['mesh']['backend']}, wall {wall:.1f} s "
+            f"(launch included), bloom_set_bits launches per rank "
+            f"{per_rank}, GFA {len(got['gfa'])} lines")
+        if got["gfa"] != lines:
+            raise AssertionError(f"mesh parity {name}: GFA differs from the "
+                                 f"run without the mesh")
+        if per_rank != [expect[name]] * MESH_RANKS:
+            raise AssertionError(f"mesh parity {name}: bloom_set_bits "
+                                 f"launches {per_rank}, not "
+                                 f"{expect[name]} a rank")
+        launches[name] = sum(per_rank)
+    return launches
+
+
+def torch_cards() -> int:
+    import torch
+    return torch.cuda.device_count()
+
+
+def mesh_cli_run(workdir: Path, fasta: Path, args, what: str):
+    """The CLI with ``--mesh`` under ``torch.distributed.run`` with 4 ranks
+    on the card.  Prints the backend, every rank's device, spans, peak
+    memory, bytes sent by route and launches, and the summed peak.
+    Returns (wall s, GFA path, rank 0's stats, every rank's stats)."""
+    gfa, run_log = workdir / "mesh.gfa", workdir / "mesh.log"
+    run_log.unlink(missing_ok=True)
+    used0, card_bytes = card_used_bytes()
+    log(f"{what}: card memory in use before the ranks start {used0} of "
+        f"{card_bytes} bytes")
+    # The CLI's arguments travel as one JSON word: torch.distributed.run's
+    # own parser would otherwise take ``--log`` for an abbreviation of its
+    # ``--log-dir`` on some Python versions.
+    with CardMemoryWatch() as watch:
+        wall = run_ranks([str(ROOT / "chip_smoke.py"), "--rank-cli",
+                          json.dumps(["--mesh", "-i", str(fasta), *args, "-o",
+                                      str(gfa), "--log", str(run_log),
+                                      "--profile-stages", "--device",
+                                      "cuda"])], what)
+    (stats,) = run_stats(run_log)
+    mesh = stats["mesh"]
+    ranks = mesh["ranks"]
+    label = f"{mesh['world_size']} ranks on {torch_cards()} card(s)"
+    log(f"{what}: {label}, backend {mesh['backend']}, devices "
+        f"{mesh['devices']}; cli wall {wall:.3f} s ({label}, the ranks' "
+        f"start included)")
+    for r in ranks:
+        log(f"{what}: rank {r['rank']} on {r['device']}: peak device memory "
+            f"{r['peak_bytes']} bytes allocated, {r['reserved_bytes']} held "
+            f"by its caching allocator, bloom_set_bits launches "
+            f"{r['bloom_set_bits_launches']}, bytes sent "
+            + json.dumps(r["traffic_bytes"]))
+        log(f"{what}: rank {r['rank']} stages (s) " + json.dumps(r["stages"]))
+    peak_sum = sum(r["peak_bytes"] or 0 for r in ranks)
+    held_sum = sum(r["reserved_bytes"] or 0 for r in ranks)
+    log(f"{what}: peak device memory summed over ranks {peak_sum} bytes "
+        f"allocated, {held_sum} held; card memory in use at most "
+        f"{watch.most} of {card_bytes} bytes during the run (every process "
+        f"on the card, sampled every {CardMemoryWatch.PERIOD_S} s)")
+    log(f"{what}: solid nodes {stats['solid_nodes']}, straights "
+        f"{stats['straights']}, junctions {stats['junctions']}, N50 "
+        f"{stats['straight_n50']}")
+    if peak_sum >= DEVICE_BYTES_LIMIT:
+        raise AssertionError(f"{what}: summed peak {peak_sum} bytes")
+    return wall, gfa, stats, ranks
+
+
+def card_used_bytes():
+    """(bytes in use on card 0 by every process, the card's bytes)."""
+    import torch
+    free, total = torch.cuda.mem_get_info(0)
+    return total - free, total
+
+
+class CardMemoryWatch:
+    """Samples the memory in use on card 0, by every process, while the
+    block runs; ``most`` is the largest sample."""
+    PERIOD_S = 0.05
+
+    def __enter__(self):
+        self.most = card_used_bytes()[0]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def _watch(self):
+        while not self._stop.wait(self.PERIOD_S):
+            self.most = max(self.most, card_used_bytes()[0])
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def check_mesh_launches(what: str, ranks, per_rank: int) -> int:
+    got = [r["bloom_set_bits_launches"] for r in ranks]
+    if got != [per_rank] * len(ranks):
+        raise AssertionError(f"{what}: bloom_set_bits launches {got}, not "
+                             f"{per_rank} a rank")
+    return sum(got)
+
+
+def mesh_main_run(workdir: Path, fasta: Path, main_gfa: Path) -> int:
+    """Phase 13.  Returns the launches summed over ranks."""
+    what = "sharded main"
+    _, gfa, _, ranks = mesh_cli_run(workdir, fasta, MAIN_ARGS, what)
+    log(f"{what}: stage-1 span per rank (s) "
+        + json.dumps([r["stages"]["stage1_count_solid"] for r in ranks]))
+    if gfa.read_text() != main_gfa.read_text():
+        raise AssertionError(f"{what}: GFA differs from phase 8's")
+    return check_mesh_launches(what, ranks, 1)
+
+
+def mesh_streaming_run(workdir: Path, fasta: Path, args, slices: int,
+                       want_gfa: Path, what: str) -> int:
+    """Phases 14 and 15.  Returns the launches summed over ranks."""
+    _, gfa, _, ranks = mesh_cli_run(workdir, fasta, args, what)
+    for r in ranks:
+        routed = {key: v for key, v in r["traffic_bytes"].items()
+                  if key.startswith(("pass1", "pass2"))}
+        log(f"{what}: rank {r['rank']} bytes sent in passes 1 and 2 "
+            f"{sum(routed.values())} " + json.dumps(routed))
+    if gfa.read_text() != want_gfa.read_text():
+        raise AssertionError(f"{what}: GFA differs from the run without "
+                             f"the mesh")
+    return check_mesh_launches(what, ranks, slices)
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-job"]:
+        return rank_job(sys.argv[2], Path(sys.argv[3]))
+    if sys.argv[1:2] == ["--rank-cli"]:
+        sys.path.insert(0, str(ROOT))
+        from platanus3_tpu_torch import cli
+        return cli.main(json.loads(sys.argv[2]))
+    started = time.time()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1074,10 +1408,21 @@ def main() -> int:
             f"nodes), one bloom_set_bits launch for each of {n_slices} "
             f"slices; killed after spass2 (exit code 137) and resumed on "
             f"the card to the uncrashed GFA; in {time.time() - t:.1f} s")
+        torch.cuda.empty_cache()
+        t = time.time()
+        launches = {f"mesh parity {name}": n for name, n in mesh_parity_runs(
+            Path(tmp), {"single shot": par.gfa_lines,
+                        "multi-k": mk.gfa_lines,
+                        "streaming": st.gfa_lines}).items()}
+        log(f"mesh parity: single shot, multi-k and streaming on "
+            f"{MESH_RANKS} ranks equal to the runs without the mesh, in "
+            f"{time.time() - t:.1f} s")
     torch.cuda.empty_cache()
 
     genome, reads, arrays = main_reads()
     chunks = arrays["packed"].shape[0]
+    bloom_shapes += bloom_rank_shapes(
+        sum(len(r) - MAIN_K + 1 for r in reads if len(r) >= MAIN_K))
     oa_launches, oa_err, oa = oa_phase(arrays)
     bb_launches, bb_err, bb = blocked_phase(arrays)
     del arrays
@@ -1087,7 +1432,6 @@ def main() -> int:
                              f"oa_count_insert {oa_launches}, "
                              f"bloom_blocked_set_bits {bb_launches}")
 
-    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         fasta = work / "reads.fasta"
@@ -1110,13 +1454,27 @@ def main() -> int:
         torch.cuda.empty_cache()
         sweep_run(genome, fasta)
         torch.cuda.empty_cache()
+        # Phases 13 and 14, while the E. coli FASTA is on disk.
+        launches["sharded main"] = mesh_main_run(work, fasta, main_gfa)
+        launches["sharded E. coli streaming"] = mesh_streaming_run(
+            work, fasta, MAIN_ARGS + ["--streaming", "--slice-chunks",
+                                      str(ECOLI_SLICE_CHUNKS),
+                                      *ECOLI_MESH_CAPS],
+            -(-chunks // ECOLI_SLICE_CHUNKS), main_gfa,
+            "sharded E. coli streaming")
     log(f"multi-k: exact-substring share {mk_share:.4f} with bubbles popped "
         f"by the JAX package's rule, {wit_share:.4f} without bubble popping; "
         f"the rule pops tandem arrays' loop arms, a known fault of the "
         f"reference (ROADMAP.md Queue 3)")
     del genome
     with tempfile.TemporaryDirectory() as tmp:
-        launches["chr21 streaming"], _ = chr21_run(Path(tmp))
+        launches["chr21 streaming"], slices, fasta, chr21_gfa = chr21_run(
+            Path(tmp))
+        torch.cuda.empty_cache()
+        launches["sharded chr21 streaming"] = mesh_streaming_run(
+            Path(tmp), fasta, CHR21_ARGS + CHR21_MESH_CAPS, slices, chr21_gfa,
+            "sharded chr21 streaming")
+        fasta.unlink()
     torch.cuda.empty_cache()
     log("bloom_set_bits launches: " + json.dumps(launches))
 
@@ -1149,6 +1507,7 @@ def main() -> int:
                    else f"{m['rows']} rows, k={MAIN_K}, 2^{key} bits"),
          "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "library_ms": None} for key, m in bb.items()]
+    log(f"chip_smoke: all phases in {time.time() - started:.1f} s")
     log(json.dumps({"kernels": [bloom_entry, oa_entry, bb_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,8 +23,9 @@ membership, with simplification and checkpoints; ``graph/multik``;
 ``streaming.assemble_streaming``; ``sweep.solid_threshold_sweep``; the C++
 read loader (``native/``); ``torch.profiler`` traces; the CLI; and the
 entry points of the other two kernels (``ops/count_oa``,
-``ops/bloom_blocked``).  Sharding (the mesh) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+``ops/bloom_blocked``); and sharding over ranks of ``torch.distributed``
+(``parallel/``: the sharded stage 1, streaming and multi-k over a mesh,
+``--mesh`` and the multi-process helpers).
 """
 
 __version__ = "0.1.0"

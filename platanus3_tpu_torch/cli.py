@@ -12,9 +12,15 @@ Usage (matches ``ShowUsage``, ``src/ShowInfo.cpp:9``):
 Port of ``platanus3_tpu/cli.py`` with the same flags plus ``--device``;
 ``--k-list`` with several k runs ``graph/multik.assemble_multik`` (and
 then, as in the JAX package, ``--streaming`` is not applied), else
-``--streaming`` runs ``streaming.assemble_streaming``.  ``--mesh``
-(sharding) is not ported yet and raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` item.
+``--streaming`` runs ``streaming.assemble_streaming``.  ``--mesh`` shards
+over the ranks a launcher started (``parallel/sharded.py``), e.g. four on
+the CPU:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m platanus3_tpu_torch.cli --mesh --device cpu -i reads.fasta ...
+
+Without a launcher's environment ``--mesh`` is a world of one rank.  Only
+rank 0 writes the GFA, the log and the FASTA, and prints.
 """
 
 from __future__ import annotations
@@ -66,7 +72,8 @@ def build_parser():
     p.add_argument("--exact-membership", action="store_true",
                    help=argparse.SUPPRESS)  # legacy alias of the default
     p.add_argument("--mesh", action="store_true",
-                   help="shard stage 1 over all visible devices")
+                   help="shard the k-mer tables over the ranks of a "
+                        "torch.distributed launch (torch.distributed.run)")
     p.add_argument("--streaming", action="store_true",
                    help="bounded-memory mode for read sets larger than "
                         "device HBM (two-pass counting)")
@@ -108,10 +115,6 @@ def main(argv=None):
         return 0
 
     from platanus3_tpu_torch.config import AssemblyConfig
-    from platanus3_tpu_torch.pipeline import MESH_NOT_PORTED, assemble
-    if args.mesh:
-        raise NotImplementedError(f"--mesh: {MESH_NOT_PORTED}")
-    from platanus3_tpu_torch.utils.logging import PipelineLog
 
     k_list = tuple(int(x) for x in args.k_list.split(",") if x)
     cfg = AssemblyConfig(
@@ -138,21 +141,18 @@ def main(argv=None):
         trace_dir=args.trace_dir,
         profile_stages=args.profile_stages,
     )
-    log = PipelineLog(cfg.log_path, echo=args.echo_log)
-    if len(k_list) > 1:
-        from platanus3_tpu_torch.graph.multik import assemble_multik
-        res = assemble_multik(args.readfile, cfg, log=log,
-                              device=args.device)
-    elif args.streaming:
-        from platanus3_tpu_torch.streaming import assemble_streaming
-        res = assemble_streaming(
-            args.readfile, cfg, log=log,
-            short_cap=(1 << args.short_cap_log2) if args.short_cap_log2
-            else 0,
-            node_cap=(1 << args.node_cap_log2) if args.node_cap_log2 else 0,
-            slice_chunks=args.slice_chunks, device=args.device)
-    else:
-        res = assemble(args.readfile, cfg, log=log, device=args.device)
+    mesh = None
+    if args.mesh:
+        from platanus3_tpu_torch.parallel import sharded
+        mesh = sharded.make_mesh(args.device)
+    try:
+        res = _run(args, cfg, k_list, mesh)
+    finally:
+        if mesh is not None and mesh.size > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    if mesh is not None and not mesh.is_root:
+        return 0
     print(f"wrote {cfg.gfa_path}: {res.num_straights} straights, "
           f"{res.num_junctions} junctions")
     if args.fasta_out:
@@ -161,6 +161,26 @@ def main(argv=None):
                                        min_len=args.min_contig)
         print(f"wrote {args.fasta_out}: {n} contigs")
     return 0
+
+
+def _run(args, cfg, k_list, mesh):
+    from platanus3_tpu_torch.pipeline import assemble
+    from platanus3_tpu_torch.utils.logging import PipelineLog
+    log = PipelineLog(cfg.log_path, echo=args.echo_log)
+    if len(k_list) > 1:
+        from platanus3_tpu_torch.graph.multik import assemble_multik
+        return assemble_multik(args.readfile, cfg, log=log, mesh=mesh,
+                               device=args.device)
+    if args.streaming:
+        from platanus3_tpu_torch.streaming import assemble_streaming
+        return assemble_streaming(
+            args.readfile, cfg, log=log,
+            short_cap=(1 << args.short_cap_log2) if args.short_cap_log2
+            else 0,
+            node_cap=(1 << args.node_cap_log2) if args.node_cap_log2 else 0,
+            slice_chunks=args.slice_chunks, mesh=mesh, device=args.device)
+    return assemble(args.readfile, cfg, log=log, mesh=mesh,
+                    device=args.device)
 
 
 if __name__ == "__main__":

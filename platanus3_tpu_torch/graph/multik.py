@@ -19,8 +19,8 @@ from __future__ import annotations
 import dataclasses
 
 from platanus3_tpu_torch.config import AssemblyConfig
-from platanus3_tpu_torch.pipeline import (AssemblyResult, MESH_NOT_PORTED,
-                                          assemble, check_device)
+from platanus3_tpu_torch.pipeline import (AssemblyResult, assemble,
+                                          check_device)
 
 __all__ = ["assemble_multik"]
 
@@ -33,10 +33,12 @@ def assemble_multik(source, config: AssemblyConfig, log=None, mesh=None,
     each round with the previous round's unitigs via ``extra_solid``;
     returns the last round's result.  ``streaming=True`` runs every round
     through the streaming pipeline with ``slice_chunks`` chunks a slice.
-    ``source`` is a read file or a list of sequences.  ``mesh`` is not
-    ported yet."""
+    ``source`` is a read file or a list of sequences.  ``mesh`` (this
+    rank's ``parallel.sharded.Mesh``) is passed to every round, as in the
+    JAX package; each rank then gets rank 0's straights to re-seed the
+    next round."""
     if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        device = mesh.device
     check_device(device, "assemble_multik")
     ks = tuple(config.k_list) or (config.k,)
     reads = list(source) if isinstance(source, (list, tuple)) else source
@@ -51,12 +53,12 @@ def assemble_multik(source, config: AssemblyConfig, log=None, mesh=None,
             extra = [s for s in res.straight_seqs if len(s) >= k]
         last = i == len(ks) - 1
         if streaming:
-            res = assemble_streaming(reads, cfg_k, log=log,
+            res = assemble_streaming(reads, cfg_k, log=log, mesh=mesh,
                                      write_output=write_output and last,
                                      slice_chunks=slice_chunks,
                                      extra_solid=extra or None, device=device)
         else:
-            res = assemble(reads, cfg_k, log=log,
+            res = assemble(reads, cfg_k, log=log, mesh=mesh,
                            write_output=write_output and last,
                            extra_solid=extra or None, device=device)
         if log:

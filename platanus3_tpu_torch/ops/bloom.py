@@ -37,7 +37,7 @@ from platanus3_tpu_torch.ops.kmer import MASK32
 
 __all__ = ["BloomFilter", "make_bloom", "bloom_add", "bloom_add_plain",
            "bloom_query", "log2_ceil", "words_to_signed", "region_layout",
-           "bloom_add_passes"]
+           "bloom_add_passes", "bloom_merge"]
 
 # Largest filter, as the JAX package's make_bloom: 2^30 words, 4 GiB.
 MAX_LOG2_BITS = 35
@@ -243,3 +243,9 @@ def bloom_query(bf: BloomFilter, kmers: torch.Tensor, k: int,
         word = bf.bits[pos >> 5].to(torch.int64)
         hit &= ((word >> (pos & 31)) & 1) == 1
     return hit
+
+
+def bloom_merge(a: BloomFilter, b: BloomFilter) -> BloomFilter:
+    """Bitwise-OR merge of two filters of one shape (sharded builds)."""
+    assert a.log2_bits == b.log2_bits and a.num_hashes == b.num_hashes
+    return a._replace(bits=a.bits | b.bits)

@@ -32,8 +32,9 @@ from platanus3_tpu_torch.ops.kmer import MASK32
 __all__ = ["KmerTable", "pack_keys", "unpack_keys", "order_keys",
            "key_lanes", "run_starts", "run_totals",
            "sort_kmers", "sort_order_keys", "count_kmers",
-           "count_positions_table", "count_solid_with_ids", "lookup_id",
-           "lookup_id_join", "lookup_join", "merge_tables"]
+           "count_positions_table", "count_with_positions",
+           "count_solid_with_ids", "lookup_id", "lookup_id_join",
+           "lookup_join", "merge_tables", "merge_into"]
 
 _SIGN = -(1 << 63)          # int64 with only the sign bit set
 _I64_MAX = (1 << 63) - 1
@@ -230,6 +231,23 @@ def count_positions_table(kmers: torch.Tensor, valid: torch.Tensor,
                        want_nid=False, want_table=want_table)
 
 
+def count_with_positions(kmers: torch.Tensor, valid: torch.Tensor,
+                         contributes: torch.Tensor | None = None,
+                         k: int | None = None):
+    """Count AND return the count of each input position's k-mer.
+
+    Returns ``(KmerTable, per_position_counts [N])``: the table holds
+    every unique VALID k-mer (its count 0 when no copy contributes), and
+    invalid positions get count 0.  ``contributes`` (default ``valid``):
+    the positions that add one to their k-mer's count; every valid copy
+    receives the count.  The sharded stage 1 counts each rank's routed
+    k-mers with it (``parallel/sharded.py``)."""
+    if contributes is None:
+        contributes = valid
+    return _scan_count(kmers, valid, contributes, k, include_zero=True,
+                       want_nid=False)
+
+
 def count_solid_with_ids(kmers: torch.Tensor, valid: torch.Tensor,
                          contributes: torch.Tensor, k: int | None = None,
                          want_counts: bool = True):
@@ -330,3 +348,13 @@ def merge_tables(a: KmerTable, b: KmerTable) -> KmerTable:
     run_total = run_totals(is_first, torch.where(s_invalid, 0, counts[perm]))
     return _compact_table(s_okey, is_first & ~s_invalid, run_total,
                           keys.shape[1])
+
+
+def merge_into(dst: KmerTable, src: KmerTable, cap: int) -> KmerTable:
+    """Merge ``src`` into ``dst`` at a FIXED capacity ``cap``: the merged
+    table cut to ``cap`` rows.  ``size`` is the merged size, uncut, so the
+    caller sees an overflow as ``size > cap`` (the sharded streaming
+    accumulators, ``streaming.py``)."""
+    merged = merge_tables(dst, src)
+    return KmerTable(keys=merged.keys[:cap], counts=merged.counts[:cap],
+                     size=merged.size)

@@ -25,13 +25,16 @@ compares one to one with the JAX package:
 package does (``utils/checkpoint.py``), and ``config.trace_dir`` wraps the
 run in a ``torch.profiler`` trace (``utils/profiling.device_trace``).
 Streaming is a separate entry point (``streaming.assemble_streaming``,
-``--streaming`` in the CLI).  The mesh (sharding) is not ported yet and
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item; the
-TPU-only staged paths are not ported at all.
+``--streaming`` in the CLI).  With a ``mesh`` (``parallel/sharded.py``),
+stage 1 runs sharded over the ranks, Bloom build included; stages 2-4
+then run on rank 0 alone while the other ranks wait, and every rank
+returns rank 0's GFA lines, counts and stats (``share_result``).  The
+TPU-only staged paths are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -53,6 +56,7 @@ from platanus3_tpu_torch.ops import bloom as bloom_mod
 from platanus3_tpu_torch.ops import count as count_mod
 from platanus3_tpu_torch.ops import kmer as kmer_mod
 from platanus3_tpu_torch.ops import solid as solid_mod
+from platanus3_tpu_torch.parallel import sharded
 from platanus3_tpu_torch.utils import checkpoint as ckpt_mod
 from platanus3_tpu_torch.utils.logging import PipelineLog
 from platanus3_tpu_torch.utils.profiling import StageTimer, device_trace
@@ -76,8 +80,6 @@ class AssemblyResult:
     stats: dict
 
 
-MESH_NOT_PORTED = "mesh / sharding is not ported yet (ROADMAP.md Queue 1 " \
-                  "item 1)"
 # Version of the checkpointed layouts (int64 lanes and ids, int32 Bloom
 # words, DBG leaves by field name); part of every checkpoint digest.
 CHECKPOINT_FORMAT = "torch-fmt=1"
@@ -354,9 +356,10 @@ def assemble(source, config: AssemblyConfig,
     ``source``: path to .fasta/.fastq, a list of sequence strings, or a
     prepared ``ReadBatch``.  ``extra_solid``: sequences whose k-mers join
     the node set whatever their coverage, and whose first k-mers join the
-    seeds (the multi-k re-seeding hook, ``graph/multik.py``).  ``mesh``
-    exists for signature parity with the JAX package and is not ported
-    yet.
+    seeds (the multi-k re-seeding hook, ``graph/multik.py``).  ``mesh``:
+    this rank's ``parallel.sharded.Mesh``; every rank calls with the same
+    arguments, stage 1 runs sharded on the mesh devices, and every rank
+    returns rank 0's result without the graph.
 
     ``config.checkpoint_dir`` saves stages 1, 2 and 3 and resumes from
     the last one found; ``config.trace_dir`` writes a ``torch.profiler``
@@ -366,17 +369,90 @@ def assemble(source, config: AssemblyConfig,
     allocation.
     """
     if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        device = mesh.device
     device = check_device(device, "assemble")
-    with device_trace(config.trace_dir, device):
+    with device_trace(trace_dir(config, mesh), device):
         return _assemble_impl(source, config, log, write_output,
-                              extra_solid, device)
+                              extra_solid, device, mesh)
 
 
-def _assemble_impl(source, config, log, write_output, extra_solid, device):
+def trace_dir(config, mesh):
+    """Where the run's trace goes: only rank 0 of a mesh traces."""
+    return config.trace_dir if mesh is None or mesh.is_root else ""
+
+
+def mesh_flags(mesh, *flags):
+    """Rank 0's decisions (checkpoint restores) on every rank."""
+    if mesh is None:
+        return flags
+    return sharded.broadcast_object(mesh, flags)
+
+
+# Process-wide counts whose rise over a run each rank reports on a mesh.
+RUN_COUNTERS = {"bloom_set_bits_launches":
+                lambda: bloom_mod.bloom_add.kernel_launches}
+
+
+def run_timer(config, device, mesh) -> StageTimer:
+    """The run's ``StageTimer`` (with ``RUN_COUNTERS``); on a mesh, this
+    rank's byte counts start again from 0."""
+    if mesh is not None:
+        mesh.traffic.clear()
+    return StageTimer(barriers=config.profile_stages, device=device,
+                      counters=RUN_COUNTERS)
+
+
+def root_part(mesh, stack: contextlib.ExitStack) -> None:
+    """From here on rank 0 works alone while the other ranks wait for it
+    (``sharded.root_section``): an error on rank 0 reaches them."""
+    if mesh is not None and mesh.is_root:
+        stack.enter_context(sharded.root_section(mesh))
+
+
+def share_result(mesh, timer, result: Optional[AssemblyResult] = None
+                 ) -> AssemblyResult:
+    """The end of a mesh run on a rank other than 0: hand this rank's
+    stats to rank 0 (``mesh_stats``), then return rank 0's result without
+    the graph.  Rank 0 calls it with its result, after ``finish``."""
+    if not mesh.is_root:
+        mesh_stats(mesh, timer)
+    shared = sharded.broadcast_object(mesh, None if result is None else (
+        result.gfa_lines, result.straight_seqs, result.num_nodes,
+        result.num_junctions, result.num_straights, result.stats))
+    if mesh.is_root:
+        return result
+    lines, seqs, n_nodes, n_j, n_s, stats = shared
+    return AssemblyResult(gfa_lines=lines, straight_seqs=seqs, dbg=None,
+                          cov=None, reach_jun=None, reach_uni=None,
+                          num_nodes=n_nodes, num_junctions=n_j,
+                          num_straights=n_s, stats=stats)
+
+
+def mesh_stats(mesh, timer) -> dict:
+    """``stats['mesh']``: the backend, the devices and every rank's
+    ``sharded.rank_stats`` with its ``RUN_COUNTERS``.  The other ranks
+    wait in a broadcast until rank 0 gets here, so that an error of
+    rank 0 before it reaches them (``root_part``)."""
+    sharded.broadcast_object(mesh, "stats")
+    return {"backend": mesh.backend, "world_size": mesh.size,
+            "devices": mesh.devices,
+            "ranks": sharded.rank_stats(mesh, timer, timer.counts())}
+
+
+def _assemble_impl(source, config, log, write_output, extra_solid, device,
+                   mesh):
+    with contextlib.ExitStack() as rank0_alone:
+        return _assemble_body(source, config, log, write_output, extra_solid,
+                              device, mesh, rank0_alone)
+
+
+def _assemble_body(source, config, log, write_output, extra_solid, device,
+                   mesh, rank0_alone):
     log = log or PipelineLog(config.log_path, echo=False)
     t0 = time.time()
-    timer = StageTimer(barriers=config.profile_stages, device=device)
+    timer = run_timer(config, device, mesh)
+    if mesh is not None:
+        log.write(sharded.describe(mesh))
     log.write("Assemble")
 
     # ---- load ----
@@ -386,7 +462,8 @@ def _assemble_impl(source, config, log, write_output, extra_solid, device):
     timer.mark("load")
 
     if batch.num_reads == 0:
-        return empty_result(config, log, t0, write_output)
+        return empty_result(config, log, t0, write_output and (
+            mesh is None or mesh.is_root))
 
     need_bloom = (not config.use_exact_membership) or config.build_bloom
     if need_bloom:
@@ -400,27 +477,41 @@ def _assemble_impl(source, config, log, write_output, extra_solid, device):
     def dev(x):
         return torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
 
-    packed = dev(batch.packed)
-    valid_len = dev(batch.valid_len)
-    read_id = dev(batch.read_id)
-    start = dev(batch.start)
-    read_len = dev(batch.read_len)
+    def upload():
+        return tuple(dev(getattr(batch, f)) for f in (
+            "packed", "valid_len", "read_id", "start", "read_len"))
+
+    # On a mesh, rank 0 uploads the whole batch only after sharded stage 1.
+    arrays = upload() if mesh is None else None
 
     # ---- stage 1: count + solidity + seeds ----
-    ckpt = checkpointer(config, batch, need_bloom, extra_solid)
-    restored1 = ckpt is not None and ckpt.has("stage1")
+    ckpt = (checkpointer(config, batch, need_bloom, extra_solid)
+            if mesh is None or mesh.is_root else None)
+    restored1, = mesh_flags(mesh, ckpt is not None and ckpt.has("stage1"))
+    bloom_pending = need_bloom  # the sharded stage 1 builds it instead
     if restored1:
+        if mesh is not None and not mesh.is_root:
+            return share_result(mesh, timer)
+        root_part(mesh, rank0_alone)
         # The saved table and seeds include the extra-solid merge.
         d = ckpt.load("stage1", device)
         table = ckpt_mod.tuple_from(count_mod.KmerTable, "table", d)
         seed_fw, has_seed, nid = d["seed_fw"], d["has_seed"], None
         log.write("stage1 restored from checkpoint")
+    elif mesh is not None:
+        table, bf, seed_fw, has_seed = _sharded_stage1(
+            mesh, batch, bf, config, need_bloom)
+        nid, bloom_pending = None, False
+        timer.mark("stage1_count_solid")
+        if not mesh.is_root:
+            return share_result(mesh, timer)
+        root_part(mesh, rank0_alone)
     else:
         table, seed_fw, has_seed, nid = _stage1(
-            packed, valid_len, read_id, start, read_len,
-            config.cov_threshold, k=config.k,
+            *arrays, config.cov_threshold, k=config.k,
             short_k=min(config.short_k, config.k),
             num_reads=batch.num_reads)
+    packed, valid_len, read_id, start, read_len = arrays or upload()
     if extra_solid and not restored1:
         etab, eseed = extra_solid_table(extra_solid, config, device)
         table = count_mod.merge_tables(table, etab)
@@ -446,7 +537,7 @@ def _assemble_impl(source, config, log, write_output, extra_solid, device):
     nodes = pad_table_keys(table.keys, num_nodes, graph_cap(num_nodes))
     del table
     size = torch.tensor(num_nodes, dtype=torch.int64, device=device)
-    if need_bloom:
+    if bloom_pending:
         bf = _bloom_from_nodes(nodes, size, bf, k=config.k)
         timer.mark("bloom_build")
 
@@ -499,11 +590,31 @@ def _assemble_impl(source, config, log, write_output, extra_solid, device):
         save_stage3(ckpt, dbg, cov, reach_jun, reach_uni, chars)
         log.write("stage3 checkpoint saved")
 
-    return finish(config, log, timer, t0, batch, write_output, dbg, cov,
-                   reach_jun, reach_uni, chars, device,
-                   stage4="stage4_emit", solid_nodes=num_nodes,
-                   closure_rounds=closure_rounds,
-                   simplify_drops=simplify_drops)
+    result = finish(config, log, timer, t0, batch, write_output, dbg, cov,
+                    reach_jun, reach_uni, chars, device,
+                    stage4="stage4_emit", solid_nodes=num_nodes,
+                    closure_rounds=closure_rounds,
+                    simplify_drops=simplify_drops, mesh=mesh)
+    return result if mesh is None else share_result(mesh, timer, result)
+
+
+def _sharded_stage1(mesh, batch, bf, config, need_bloom):
+    """Stage 1 over the mesh (``sharded.sharded_stage1``) on the padded
+    batch; raises JAX's message on every rank when a bucket overflowed.
+    Returns ``(table, bf, seed_fw, has_seed)``."""
+    arrays = sharded.pad_batch_to_devices(
+        (batch.packed, batch.valid_len, batch.read_id, batch.start,
+         batch.read_len), mesh.size)
+    table, bf, seed_fw, has_seed, ovf = sharded.sharded_stage1(
+        mesh, *arrays, bf, k=config.k,
+        short_k=min(config.short_k, config.k),
+        cov_threshold=config.cov_threshold, num_reads=batch.num_reads,
+        add_to_bloom=need_bloom)
+    if ovf > 0:
+        raise RuntimeError(f"all-to-all bucket overflow ({ovf} k-mers "
+                           f"dropped); increase slack")
+    sharded.release_cache(mesh)
+    return table, bf, seed_fw, has_seed
 
 
 def empty_result(config, log, t0, write_output) -> AssemblyResult:
@@ -524,10 +635,11 @@ def empty_result(config, log, t0, write_output) -> AssemblyResult:
 
 def finish(config, log, timer, t0, batch, write_output, dbg, cov,
             reach_jun, reach_uni, chars, device, *, stage4, solid_nodes,
-            closure_rounds, simplify_drops) -> AssemblyResult:
+            closure_rounds, simplify_drops, mesh=None) -> AssemblyResult:
     """Stage 4 and the result, shared with the streaming pipeline: the
     seed-restriction override, the emission packs, the GFA and the
-    ``stats`` log line."""
+    ``stats`` log line (on a mesh, rank 0's, with ``stats['mesh']``
+    gathered from every rank just before)."""
     if not config.restrict_to_seeds:
         reach_jun = torch.ones_like(reach_jun)
         reach_uni = torch.ones_like(reach_uni)
@@ -559,6 +671,8 @@ def finish(config, log, timer, t0, batch, write_output, dbg, cov,
              "stages": dict(timer.spans)}
     if timer.peak_bytes:
         stats["peak_bytes"] = dict(timer.peak_bytes)
+    if mesh is not None:
+        stats["mesh"] = mesh_stats(mesh, timer)
     log.write("stats " + json.dumps(stats))
     return AssemblyResult(
         gfa_lines=lines, straight_seqs=seqs, dbg=dbg, cov=cov,

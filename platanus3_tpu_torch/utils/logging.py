@@ -6,12 +6,21 @@ graph NODE during traversal -- a measured serial bottleneck (SURVEY.md
 §5: ~550 KB of log for a 3 kb genome).  Here: buffered stage-level lines
 plus named COUNTERS (the per-node spam becomes metrics), flushed once per
 stage.  File format stays line-per-event so existing habits work.
+
+Under a mesh of ranks (``parallel/sharded.py``) only rank 0 echoes and
+writes the file; the other ranks drop their lines.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Optional
+
+import torch.distributed as dist
+
+
+def _is_writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class PipelineLog:
@@ -25,6 +34,8 @@ class PipelineLog:
 
     def write(self, text: str):
         line = f"[{time.time() - self._t0:8.2f}s] {text}"
+        if not _is_writer():
+            return
         self.lines.append(line)
         if self.echo:
             print(line, flush=True)

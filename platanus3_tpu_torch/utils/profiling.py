@@ -11,8 +11,11 @@ the counterpart of the JAX package's ``jax.profiler`` trace.
 (``torch.cuda.synchronize()``), so a span measures finished device work
 rather than enqueued work.  On a CUDA device it also records the peak
 device memory allocated during each span
-(``torch.cuda.max_memory_allocated``).  ``part`` splits the span in
-progress into named parts, each a span of its own.
+(``torch.cuda.max_memory_allocated``) and the most the caching allocator
+held (``torch.cuda.max_memory_reserved``).  ``part`` splits the span in
+progress into named parts, each a span of its own.  ``counters`` names
+process-wide counts (a zero-argument function each, such as a kernel's
+launch count); ``counts`` gives how far each rose since the timer began.
 """
 
 from __future__ import annotations
@@ -53,9 +56,13 @@ def device_trace(trace_dir: str | None, device="cpu"):
 
 
 class StageTimer:
-    def __init__(self, barriers: bool = False, device="cpu"):
+    def __init__(self, barriers: bool = False, device="cpu",
+                 counters=None):
         self.spans = {}
         self.peak_bytes = {}
+        self.reserved_bytes = {}
+        self.counters = dict(counters or {})
+        self._counts0 = {name: read() for name, read in self.counters.items()}
         self.barriers = barriers
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
@@ -73,8 +80,16 @@ class StageTimer:
         if self._cuda:
             peak = torch.cuda.max_memory_allocated(self.device)
             self.peak_bytes[name] = max(self.peak_bytes.get(name, 0), peak)
+            held = torch.cuda.max_memory_reserved(self.device)
+            self.reserved_bytes[name] = max(self.reserved_bytes.get(name, 0),
+                                            held)
             torch.cuda.reset_peak_memory_stats(self.device)
         self._last = self._part_last = now
+
+    def counts(self) -> dict:
+        """Each counter's rise since the timer began."""
+        return {name: read() - self._counts0[name]
+                for name, read in self.counters.items()}
 
     def part(self, name: str):
         """Record the time since the previous mark or part as span

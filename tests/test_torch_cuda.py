@@ -1,6 +1,7 @@
 """Tests that need a CUDA card: the port's kernels against their plain
-PyTorch versions, and GPU assemblies (single shot, multi-k, streaming)
-and the threshold sweep against the CPU ones.
+PyTorch versions, GPU assemblies (single shot, multi-k, streaming) and
+the threshold sweep against the CPU ones, and a mesh of four ranks on the
+card against one device.
 
 They skip where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so on a machine with a card and without
@@ -266,3 +267,29 @@ def test_gpu_sweep_equals_cpu(cuda):
     args = (reads, cfg, range(1, 8))
     assert solid_threshold_sweep(*args, truth_genome=genome, device=cuda) \
         == solid_threshold_sweep(*args, truth_genome=genome, device="cpu")
+
+
+def test_gpu_mesh_of_four_ranks_equals_one_device(cuda, tmp_path):
+    """Four ranks share the card (gloo): single shot in Bloom membership
+    with the false-positive closure, and streaming in Bloom membership,
+    each equal to the card's single-device GFA, with ``bloom_set_bits``
+    launched on every rank."""
+    import torch_mesh_worker as worker
+    got = worker.launch(tmp_path, ["assemble_reference_filter",
+                                   "stream_bloom"], device="cuda")
+    reads, kw = worker.assemble_cases()["reference_filter"]
+    one = assemble(reads, AssemblyConfig(log_path=None, **kw),
+                   write_output=False, device=cuda)
+    reads_s, kw_s, slice_chunks = worker.streaming_cases()["stream_bloom"]
+    one_s = assemble_streaming(reads_s, AssemblyConfig(log_path=None, **kw_s),
+                               write_output=False, slice_chunks=slice_chunks,
+                               device=cuda)
+    for name, want in (("assemble_reference_filter", one),
+                       ("stream_bloom", one_s)):
+        ranks = got[name]
+        assert all(r["gfa"] == want.gfa_lines for r in ranks)
+        per_rank = [r["bloom_set_bits_launches"]
+                    for r in ranks[0]["stats"]["mesh"]["ranks"]]
+        assert min(per_rank) >= 1, per_rank
+        assert ranks[0]["stats"]["mesh"]["backend"] == (
+            "nccl" if torch.cuda.device_count() >= 4 else "gloo")

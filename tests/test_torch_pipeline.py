@@ -143,12 +143,3 @@ def test_assemble_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_assemble([rand_genome(80)] * 2,
                    TConfig(chunk_len=256, log_path=None), write_output=False)
-
-
-@pytest.mark.parametrize("flag", ["--mesh"])
-def test_unported_cli_flags_raise(tmp_path, flag):
-    fasta = tmp_path / "r.fasta"
-    fasta.write_text(">a\n" + rand_genome(80) + "\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_cli.main(["-i", str(fasta), flag, "--device", "cpu",
-                    "-o", str(tmp_path / "o.gfa"), "--log", ""])

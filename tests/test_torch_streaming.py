@@ -142,12 +142,6 @@ def test_streaming_defaults_to_the_card(monkeypatch):
                     write_output=False)
 
 
-def test_streaming_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        t_streaming(["ACGT" * 20], TConfig(log_path=None),
-                    write_output=False, mesh=object(), device="cpu")
-
-
 def test_streaming_without_reads_of_k_bases():
     """No read of k bases: the header-only GFA of the single-shot
     pipelines (the JAX package's streaming fails on this input)."""
