@@ -98,7 +98,9 @@ def build_parser():
                         "here (trace.json; open with Perfetto)")
     p.add_argument("--profile-stages", action="store_true",
                    help="barrier at stage boundaries so the logged "
-                        "per-stage breakdown is exact")
+                        "per-stage breakdown is exact; on a card also "
+                        "log each stage's peak memory and count host "
+                        "syncs a stage")
     p.add_argument("--echo-log", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device to assemble on (default cuda; "

@@ -111,11 +111,13 @@ class AssemblyConfig:
     # --- observability (new vs reference; SURVEY.md §5 tracing row) ---
     trace_dir: str = ""             # "" = off; else a torch.profiler
                                     # Chrome trace of the run goes here
-    profile_stages: bool = False    # torch.cuda.synchronize() at stage
+    profile_stages: bool = False    # torch.cuda.synchronize() at span
                                     # boundaries so the per-stage wall-clock
                                     # breakdown is exact (off: spans are
                                     # recorded but async dispatch may shift
-                                    # time across stages)
+                                    # time across stages); on a card also
+                                    # each stage's peak memory and a count
+                                    # of host syncs a span
 
     def auto_filter_bits(self, all_bases: int) -> tuple[int, int]:
         """Bloom sizing -> (bits, num_hashes).

@@ -560,7 +560,9 @@ def rank_stats(mesh: Mesh, timer, counters: dict) -> list:
     """Every rank's spans, peak device memory (bytes, on a card:
     allocated and held by the caching allocator), bytes
     sent by label and the caller's ``counters`` (this rank's counts of
-    the run), in rank order (one all-gather of objects)."""
+    the run), in rank order (one all-gather of objects).  The peaks are
+    recorded only under ``--profile-stages`` (``StageTimer``'s
+    ``profile``), and are None without it."""
     return all_gather_object(mesh, {
         "rank": mesh.rank, "device": str(mesh.device),
         "stages": dict(timer.spans),

@@ -37,7 +37,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
-import time
 from typing import Optional
 
 import numpy as np
@@ -146,19 +145,25 @@ def load_stage3(ckpt, device):
 
 
 def _stage1(packed, valid_len, read_id, start, read_len, cov_threshold, *,
-            k, short_k, num_reads):
-    result = solid_mod.solid_kmers(
-        (packed, valid_len, read_id, start, read_len), k, short_k,
-        cov_threshold, need_short_table=False)
-    seed_fw, has_seed = solid_mod.first_solid_per_read(
-        result, read_id, start, num_reads)
-    c, pk, l = result.canon.shape
-    # One sort yields the node table AND every position's node id; the
-    # node table's counts are never read (coverage is stage 3's).
-    node_table, nid = count_mod.count_solid_with_ids(
-        result.canon.reshape(-1, l), result.owned.reshape(-1),
-        (result.is_solid & result.owned).reshape(-1), k=k,
-        want_counts=False)
+            k, short_k, num_reads, timer=None):
+    """Stage 1, in the parts ``stage1.solid``, ``stage1.seeds`` and
+    ``stage1.node_ids`` of ``timer``'s span."""
+    timer = timer or StageTimer()
+    with timer.part("stage1.solid"):
+        result = solid_mod.solid_kmers(
+            (packed, valid_len, read_id, start, read_len), k, short_k,
+            cov_threshold, need_short_table=False)
+    with timer.part("stage1.seeds"):
+        seed_fw, has_seed = solid_mod.first_solid_per_read(
+            result, read_id, start, num_reads)
+    with timer.part("stage1.node_ids"):
+        c, pk, l = result.canon.shape
+        # One sort yields the node table AND every position's node id;
+        # the node table's counts are never read (coverage is stage 3's).
+        node_table, nid = count_mod.count_solid_with_ids(
+            result.canon.reshape(-1, l), result.owned.reshape(-1),
+            (result.is_solid & result.owned).reshape(-1), k=k,
+            want_counts=False)
     return node_table, seed_fw, has_seed, nid.reshape(c, pk)
 
 
@@ -289,7 +294,7 @@ def simplify_graph(dbg, stage3, nid, bf, config, log, run_stage3, timer):
     kept nodes with EXACT membership (after a deletion the Bloom filter no
     longer describes the node set) and stage 3 run again.  Kept nodes keep
     their lexicographic order, so stage 1's node ids remap by rank among
-    the kept rows.  Each round's parts are spans of ``timer``:
+    the kept rows.  Each round's parts are parts of ``timer``'s span:
     ``simplify.to_host`` (the DBG leaves and coverage to numpy),
     ``simplify.decide``, ``simplify.stage2`` (the kept keys and the
     rebuild) and ``simplify.stage3``.  Returns ``(dbg, stage-3 outputs,
@@ -297,52 +302,58 @@ def simplify_graph(dbg, stage3, nid, bf, config, log, run_stage3, timer):
     rounds = config.simplify_rounds if config.simplify_rounds > 0 else 100
     dropped = 0
     for rnd in range(rounds):
-        dbg_np = dbg._replace(**{f: getattr(dbg, f).cpu().numpy()
-                                 for f in _SIMPLIFY_LEAVES})
-        node_cov = stage3[0].node_cov.cpu().numpy()
-        timer.part("simplify.to_host")
-        keep, n_drop = simp_mod.decide_drops(dbg_np, node_cov, config)
-        timer.part("simplify.decide")
+        with timer.part("simplify.to_host"):
+            dbg_np = dbg._replace(**{f: getattr(dbg, f).cpu().numpy()
+                                     for f in _SIMPLIFY_LEAVES})
+            node_cov = stage3[0].node_cov.cpu().numpy()
+        with timer.part("simplify.decide"):
+            keep, n_drop = simp_mod.decide_drops(dbg_np, node_cov, config)
         if keep is None:
             break
         dropped += n_drop
-        keep = torch.from_numpy(keep).to(dbg.nodes.device)
-        kept = dbg.nodes[keep]
-        n_keep = kept.shape[0]
-        nodes = pad_table_keys(kept, n_keep, graph_cap(n_keep))
-        size = torch.tensor(n_keep, dtype=torch.int64, device=nodes.device)
-        del dbg, kept, stage3
-        dbg = run_stage2(nodes, size, bf, k=config.k, use_exact=True)
-        timer.part("simplify.stage2")
-        if nid is not None:
-            remap = torch.where(keep, torch.cumsum(keep, 0) - 1, -1)
-            nid = torch.where(nid >= 0, remap[nid.clamp(min=0)], -1)
-        stage3 = run_stage3(dbg, nid)
-        timer.part("simplify.stage3")
+        with timer.part("simplify.stage2"):
+            keep = torch.from_numpy(keep).to(dbg.nodes.device)
+            kept = dbg.nodes[keep]
+            n_keep = kept.shape[0]
+            nodes = pad_table_keys(kept, n_keep, graph_cap(n_keep))
+            size = torch.tensor(n_keep, dtype=torch.int64,
+                                device=nodes.device)
+            del dbg, kept, stage3
+            dbg = run_stage2(nodes, size, bf, k=config.k, use_exact=True)
+        with timer.part("simplify.stage3"):
+            if nid is not None:
+                remap = torch.where(keep, torch.cumsum(keep, 0) - 1, -1)
+                nid = torch.where(nid >= 0, remap[nid.clamp(min=0)], -1)
+            stage3 = run_stage3(dbg, nid)
         log.write(f"simplify round {rnd + 1}: dropped {n_drop} unitigs, "
                   f"{n_keep} nodes left")
     return dbg, stage3, dropped
 
 
-def _emit_output(dbg, cov, reach_jun, reach_uni, chars, k):
-    """Stage 4: compact emission packs on the device, GFA on the host."""
-    num_u = int(dbg.num_unitigs)
-    n_jun = int((dbg.is_junction_final & reach_jun).sum())
-    m = dbg.nodes.shape[0]
-    ucap = min(max(1, _next_pow2(max(num_u, 1))), m)
-    total_chars = int(dbg.unitig_len[:ucap].sum()) + num_u * (k - 1)
-    char_cap = max(8, _next_pow2(total_chars + 1))
-    jun_cap = max(1, _next_pow2(max(n_jun, 1)))
-
-    seq_pack = emit_mod.materialize_sequences(dbg, chars, k=k, ucap=ucap,
-                                              char_cap=char_cap)
-    jun_pack = emit_mod.pack_junctions(dbg, cov, reach_jun, jun_cap=jun_cap)
-    seq_np = emit_mod.SeqPack(*[t.cpu().numpy() for t in seq_pack])
-    jun_np = emit_mod.JunPack(*[t.cpu().numpy() for t in jun_pack])
-    seqs = gfa_mod.sequences_from_pack(seq_np, num_u, k)
-    lines = gfa_mod.gfa_lines(jun_np, seq_np,
-                              reach_uni[:max(ucap, 1)].cpu().numpy(),
-                              num_u, m, k, seqs=seqs)
+def _emit_output(dbg, cov, reach_jun, reach_uni, chars, k, timer):
+    """Stage 4: compact emission packs on the device (part ``emit.pack``,
+    with the sizes read before them), their copies to the host
+    (``emit.to_host``), the GFA text on the host (``emit.text``)."""
+    with timer.part("emit.pack"):
+        num_u = int(dbg.num_unitigs)
+        n_jun = int((dbg.is_junction_final & reach_jun).sum())
+        m = dbg.nodes.shape[0]
+        ucap = min(max(1, _next_pow2(max(num_u, 1))), m)
+        total_chars = int(dbg.unitig_len[:ucap].sum()) + num_u * (k - 1)
+        char_cap = max(8, _next_pow2(total_chars + 1))
+        jun_cap = max(1, _next_pow2(max(n_jun, 1)))
+        seq_pack = emit_mod.materialize_sequences(dbg, chars, k=k, ucap=ucap,
+                                                  char_cap=char_cap)
+        jun_pack = emit_mod.pack_junctions(dbg, cov, reach_jun,
+                                           jun_cap=jun_cap)
+    with timer.part("emit.to_host"):
+        seq_np = emit_mod.SeqPack(*[t.cpu().numpy() for t in seq_pack])
+        jun_np = emit_mod.JunPack(*[t.cpu().numpy() for t in jun_pack])
+        uni_np = reach_uni[:max(ucap, 1)].cpu().numpy()
+    with timer.part("emit.text"):
+        seqs = gfa_mod.sequences_from_pack(seq_np, num_u, k)
+        lines = gfa_mod.gfa_lines(jun_np, seq_np, uni_np, num_u, m, k,
+                                  seqs=seqs)
     return seqs, lines
 
 
@@ -363,10 +374,13 @@ def assemble(source, config: AssemblyConfig,
 
     ``config.checkpoint_dir`` saves stages 1, 2 and 3 and resumes from
     the last one found; ``config.trace_dir`` writes a ``torch.profiler``
-    trace of the run there.  ``config.profile_stages`` synchronises the
-    device at stage boundaries so ``result.stats['stages']`` is exact; on
-    a CUDA device ``result.stats['peak_bytes']`` holds each stage's peak
-    allocation.
+    trace of the run there.  ``result.stats['stages']`` holds the spans
+    of ``utils/profiling.StageTimer`` (seconds), ``stats['counts']`` each
+    counter's rise over the run and ``stats['span_counts']`` its rise over
+    each span.  ``config.profile_stages`` synchronises the device at span
+    boundaries so the spans are exact; on a CUDA device it also puts each
+    stage's peak allocation in ``stats['peak_bytes']`` and counts the
+    host's waits for the device (counter ``host_syncs``).
     """
     if mesh is not None:
         device = mesh.device
@@ -388,17 +402,19 @@ def mesh_flags(mesh, *flags):
     return sharded.broadcast_object(mesh, flags)
 
 
-# Process-wide counts whose rise over a run each rank reports on a mesh.
+# Process-wide counts whose rise over each span and over the run the stats
+# line gives (and each rank reports on a mesh).
 RUN_COUNTERS = {"bloom_set_bits_launches":
                 lambda: bloom_mod.bloom_add.kernel_launches}
 
 
 def run_timer(config, device, mesh) -> StageTimer:
-    """The run's ``StageTimer`` (with ``RUN_COUNTERS``); on a mesh, this
-    rank's byte counts start again from 0."""
+    """The run's ``StageTimer`` (with ``RUN_COUNTERS``), to be entered
+    around the run; on a mesh, this rank's byte counts start again from
+    0."""
     if mesh is not None:
         mesh.traffic.clear()
-    return StageTimer(barriers=config.profile_stages, device=device,
+    return StageTimer(profile=config.profile_stages, device=device,
                       counters=RUN_COUNTERS)
 
 
@@ -415,6 +431,7 @@ def share_result(mesh, timer, result: Optional[AssemblyResult] = None
     stats to rank 0 (``mesh_stats``), then return rank 0's result without
     the graph.  Rank 0 calls it with its result, after ``finish``."""
     if not mesh.is_root:
+        timer.end()
         mesh_stats(mesh, timer)
     shared = sharded.broadcast_object(mesh, None if result is None else (
         result.gfa_lines, result.straight_seqs, result.num_nodes,
@@ -441,16 +458,16 @@ def mesh_stats(mesh, timer) -> dict:
 
 def _assemble_impl(source, config, log, write_output, extra_solid, device,
                    mesh):
-    with contextlib.ExitStack() as rank0_alone:
+    with run_timer(config, device, mesh) as timer, \
+            contextlib.ExitStack() as rank0_alone:
         return _assemble_body(source, config, log, write_output, extra_solid,
-                              device, mesh, rank0_alone)
+                              device, mesh, timer, rank0_alone)
 
 
 def _assemble_body(source, config, log, write_output, extra_solid, device,
-                   mesh, rank0_alone):
+                   mesh, timer, rank0_alone):
     log = log or PipelineLog(config.log_path, echo=False)
-    t0 = time.time()
-    timer = run_timer(config, device, mesh)
+    timer.begin("load")
     if mesh is not None:
         log.write(sharded.describe(mesh))
     log.write("Assemble")
@@ -459,10 +476,10 @@ def _assemble_body(source, config, log, write_output, extra_solid, device,
     batch = load_batch(source, config)
     log.write(f"read file loaded ({batch.num_reads} reads, "
               f"{batch.all_bases} bases, {batch.num_chunks} chunks)")
-    timer.mark("load")
+    timer.begin("stage1_count_solid")
 
     if batch.num_reads == 0:
-        return empty_result(config, log, t0, write_output and (
+        return empty_result(config, log, timer, write_output and (
             mesh is None or mesh.is_root))
 
     need_bloom = (not config.use_exact_membership) or config.build_bloom
@@ -502,7 +519,6 @@ def _assemble_body(source, config, log, write_output, extra_solid, device,
         table, bf, seed_fw, has_seed = _sharded_stage1(
             mesh, batch, bf, config, need_bloom)
         nid, bloom_pending = None, False
-        timer.mark("stage1_count_solid")
         if not mesh.is_root:
             return share_result(mesh, timer)
         root_part(mesh, rank0_alone)
@@ -510,7 +526,7 @@ def _assemble_body(source, config, log, write_output, extra_solid, device,
         table, seed_fw, has_seed, nid = _stage1(
             *arrays, config.cov_threshold, k=config.k,
             short_k=min(config.short_k, config.k),
-            num_reads=batch.num_reads)
+            num_reads=batch.num_reads, timer=timer)
     packed, valid_len, read_id, start, read_len = arrays or upload()
     if extra_solid and not restored1:
         etab, eseed = extra_solid_table(extra_solid, config, device)
@@ -531,7 +547,7 @@ def _assemble_body(source, config, log, write_output, extra_solid, device,
         log.write("stage1 checkpoint saved")
     log.write(f"counted short kmer; solid nodes={num_nodes}")
     log.metric("seed kmer num", int(has_seed.sum()))
-    timer.mark("stage1_count_solid")
+    timer.begin("bloom_build" if bloom_pending else "stage2_graph")
 
     # ---- compact node table to the graph capacity ----
     nodes = pad_table_keys(table.keys, num_nodes, graph_cap(num_nodes))
@@ -539,7 +555,7 @@ def _assemble_body(source, config, log, write_output, extra_solid, device,
     size = torch.tensor(num_nodes, dtype=torch.int64, device=device)
     if bloom_pending:
         bf = _bloom_from_nodes(nodes, size, bf, k=config.k)
-        timer.mark("bloom_build")
+        timer.begin("stage2_graph")
 
     # ---- stage 2: graph ----
     restored3 = ckpt is not None and ckpt.has("stage3")
@@ -563,7 +579,7 @@ def _assemble_body(source, config, log, write_output, extra_solid, device,
             ckpt.save("stage2", **ckpt_mod.tuple_arrays("dbg", dbg))
             log.write("stage2 checkpoint saved")
     log.write("de bruijn graph loaded")
-    timer.mark("stage2_graph")
+    timer.begin("stage3_coverage")
 
     # ---- stage 3: coverage + reachability ----
     prev_base, next_base = dev(batch.prev_base), dev(batch.next_base)
@@ -578,21 +594,20 @@ def _assemble_body(source, config, log, write_output, extra_solid, device,
     else:
         stage3 = run_stage3(dbg, nid)
         log.write("count node coverage")
-    timer.mark("stage3_coverage")
 
     simplify_drops = 0
     if (config.clip_tips or config.pop_bubbles) and not restored3:
+        timer.begin("simplify")
         dbg, stage3, simplify_drops = simplify_graph(
             dbg, stage3, nid, bf, config, log, run_stage3, timer)
-        timer.mark("simplify")
+    timer.begin("stage4_emit")
     cov, reach_jun, reach_uni, chars = stage3
     if ckpt is not None and not restored3:
         save_stage3(ckpt, dbg, cov, reach_jun, reach_uni, chars)
         log.write("stage3 checkpoint saved")
 
-    result = finish(config, log, timer, t0, batch, write_output, dbg, cov,
-                    reach_jun, reach_uni, chars, device,
-                    stage4="stage4_emit", solid_nodes=num_nodes,
+    result = finish(config, log, timer, batch, write_output, dbg, cov,
+                    reach_jun, reach_uni, chars, device, solid_nodes=num_nodes,
                     closure_rounds=closure_rounds,
                     simplify_drops=simplify_drops, mesh=mesh)
     return result if mesh is None else share_result(mesh, timer, result)
@@ -617,7 +632,7 @@ def _sharded_stage1(mesh, batch, bf, config, need_bloom):
     return table, bf, seed_fw, has_seed
 
 
-def empty_result(config, log, t0, write_output) -> AssemblyResult:
+def empty_result(config, log, timer, write_output) -> AssemblyResult:
     """The header-only GFA of a read set without a read of k bases or
     more (the reference drops shorter reads, ``src/Load.cpp:59,86``)."""
     lines = ["H\tVN:Z:1.0"]
@@ -629,53 +644,58 @@ def empty_result(config, log, t0, write_output) -> AssemblyResult:
         gfa_lines=lines, straight_seqs=[], dbg=None, cov=None,
         reach_jun=None, reach_uni=None, num_nodes=0, num_junctions=0,
         num_straights=0,
-        stats={"elapsed_s": time.time() - t0, "all_bases": 0,
+        stats={"elapsed_s": timer.elapsed(), "all_bases": 0,
                "num_reads": 0, "solid_nodes": 0})
 
 
-def finish(config, log, timer, t0, batch, write_output, dbg, cov,
-            reach_jun, reach_uni, chars, device, *, stage4, solid_nodes,
-            closure_rounds, simplify_drops, mesh=None) -> AssemblyResult:
+def finish(config, log, timer, batch, write_output, dbg, cov, reach_jun,
+           reach_uni, chars, device, *, solid_nodes, closure_rounds,
+           simplify_drops, mesh=None) -> AssemblyResult:
     """Stage 4 and the result, shared with the streaming pipeline: the
-    seed-restriction override, the emission packs, the GFA and the
-    ``stats`` log line (on a mesh, rank 0's, with ``stats['mesh']``
-    gathered from every rank just before)."""
+    seed-restriction override, the emission packs, the GFA (inside the
+    stage-4 span the caller began), then span ``finish``: the counts, the
+    N50 and the ``stats`` log line (on a mesh, rank 0's, with
+    ``stats['mesh']`` gathered from every rank just before)."""
     if not config.restrict_to_seeds:
         reach_jun = torch.ones_like(reach_jun)
         reach_uni = torch.ones_like(reach_uni)
 
     # ---- stage 4: device emission packs -> host GFA rendering ----
     seqs, lines = _emit_output(dbg, cov, reach_jun, reach_uni, chars,
-                               config.k)
-    if write_output:
-        with open(config.gfa_path, "w") as f:
-            f.write("\n".join(lines) + "\n")
-    timer.mark(stage4)
-    n_s = sum(1 for ln in lines if ln.startswith("S\tStraight"))
+                               config.k, timer)
+    with timer.part("emit.write"):
+        if write_output:
+            with open(config.gfa_path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+    timer.begin("finish")
+    straight_lens = [len(ln.split("\t")[2]) for ln in lines
+                     if ln.startswith("S\tStraight")]
+    n_s = len(straight_lens)
     n_j = sum(1 for ln in lines if ln.startswith("S\tJunction"))
-    log.write(f"finish ({time.time() - t0:.2f}s, {n_s} straights, "
-              f"{n_j} junctions)")
-    stats = {"elapsed_s": time.time() - t0,
-             "k": config.k,
+    num_nodes = int(dbg.size)
+    log.write(f"finish ({timer.elapsed():.2f}s, {n_s} straights, {n_j} "
+              f"junctions)")
+    stats = {"k": config.k,
              "all_bases": batch.all_bases,
              "num_reads": batch.num_reads,
              "solid_nodes": solid_nodes,
-             "graph_nodes": int(dbg.size),
+             "graph_nodes": num_nodes,
              "straights": n_s,
              "junctions": n_j,
-             "straight_n50": _n50([len(ln.split("\t")[2]) for ln in lines
-                                   if ln.startswith("S\tStraight")]),
+             "straight_n50": _n50(straight_lens),
              "closure_rounds": closure_rounds,
              "simplify_drops": simplify_drops,
-             "device": str(device),
-             "stages": dict(timer.spans)}
-    if timer.peak_bytes:
-        stats["peak_bytes"] = dict(timer.peak_bytes)
+             "device": str(device)}
     if mesh is not None:
         stats["mesh"] = mesh_stats(mesh, timer)
+    timer.end()
+    stats.update(elapsed_s=timer.elapsed(), stages=dict(timer.spans),
+                 counts=timer.counts(), span_counts=timer.span_counts)
+    if timer.peak_bytes:
+        stats["peak_bytes"] = dict(timer.peak_bytes)
     log.write("stats " + json.dumps(stats))
     return AssemblyResult(
         gfa_lines=lines, straight_seqs=seqs, dbg=dbg, cov=cov,
         reach_jun=reach_jun, reach_uni=reach_uni,
-        num_nodes=int(dbg.size), num_junctions=n_j, num_straights=n_s,
+        num_nodes=num_nodes, num_junctions=n_j, num_straights=n_s,
         stats=stats)

@@ -55,7 +55,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-import time
 from typing import Optional
 
 import numpy as np
@@ -112,8 +111,9 @@ def assemble_streaming(source, config: AssemblyConfig,
     ``load``, ``pass1_histogram``, ``pass1_collect``, ``pass1_count``,
     ``pass2_histogram``, ``pass2_collect``, ``pass2_dedup``,
     ``pass2_table``, ``graph``, ``coverage``, ``simplify``,
-    ``reach_chars``, ``emit``, with each span's peak device memory in
-    ``stats['peak_bytes']`` on the card.
+    ``reach_chars``, ``emit`` (with its parts ``emit.pack``,
+    ``emit.to_host``, ``emit.text`` and ``emit.write``) and ``finish``, as
+    in ``pipeline.assemble``.
 
     ``mesh``: this rank's ``parallel.sharded.Mesh``; every rank calls with
     the same arguments and runs on its mesh device.  ``slice_chunks`` is
@@ -134,17 +134,28 @@ def assemble_streaming(source, config: AssemblyConfig,
 
 def _streaming_impl(source, config, log, write_output, short_cap, node_cap,
                     slice_chunks, extra_solid, device, mesh):
-    with contextlib.ExitStack() as rank0_alone:
+    with pipe.run_timer(config, device, mesh) as timer, \
+            contextlib.ExitStack() as rank0_alone:
         return _streaming_body(source, config, log, write_output, short_cap,
                                node_cap, slice_chunks, extra_solid, device,
-                               mesh, rank0_alone)
+                               mesh, timer, rank0_alone)
+
+
+def _first_span(mesh, restored3, restored2) -> str:
+    """The span after ``load``, named where it starts: a restore, the
+    first pass, or on a mesh rank other than 0 a restore's coverage."""
+    if not restored3 and not restored2:
+        return "pass1_histogram" if mesh is None else "pass1"
+    if mesh is not None and not mesh.is_root:
+        return "coverage"
+    return "restore" if restored3 else "restore_spass2"
 
 
 def _streaming_body(source, config, log, write_output, short_cap, node_cap,
-                    slice_chunks, extra_solid, device, mesh, rank0_alone):
+                    slice_chunks, extra_solid, device, mesh, timer,
+                    rank0_alone):
     log = log or PipelineLog(config.log_path, echo=False)
-    t0 = time.time()
-    timer = pipe.run_timer(config, device, mesh)
+    timer.begin("load")
     if mesh is not None:
         log.write(sharded.describe(mesh))
         slice_chunks = -(-slice_chunks // mesh.size) * mesh.size
@@ -153,13 +164,20 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
     c_total = batch.num_chunks
     log.write(f"[streaming] {batch.num_reads} reads, {batch.all_bases} "
               f"bases, {c_total} chunks, slice={slice_chunks}")
-    timer.mark("load")
     if batch.num_reads == 0:
-        return pipe.empty_result(config, log, t0, write_output and (
+        return pipe.empty_result(config, log, timer, write_output and (
             mesh is None or mesh.is_root))
 
     k = config.k
     need_bloom = (not config.use_exact_membership) or config.build_bloom
+    ckpt = (pipe.checkpointer(config, batch, need_bloom, extra_solid,
+                              "streaming")
+            if mesh is None or mesh.is_root else None)
+    restored3, restored2 = pipe.mesh_flags(
+        mesh, ckpt is not None and ckpt.has("stage3"),
+        ckpt is not None and ckpt.has("spass2"))
+    restored2 = restored2 and not restored3
+    timer.begin(_first_span(mesh, restored3, restored2))
     if need_bloom:
         bits, hashes = config.auto_filter_bits(batch.all_bases)
         bf = bloom_mod.make_bloom(bits, hashes, device=device)
@@ -167,9 +185,6 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
         log.metric("num_hashes", bf.num_hashes)
     else:
         bf = bloom_mod.make_bloom(8, 1, device=device)
-    ckpt = (pipe.checkpointer(config, batch, need_bloom, extra_solid,
-                              "streaming")
-            if mesh is None or mesh.is_root else None)
 
     def slice_arrays(lo, hi):
         """Chunks ``[lo, hi)`` on the device; on a mesh, this rank's
@@ -190,28 +205,24 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
             out.append(torch.from_numpy(a).to(device))
         return tuple(out)
 
-    restored3, restored2 = pipe.mesh_flags(
-        mesh, ckpt is not None and ckpt.has("stage3"),
-        ckpt is not None and ckpt.has("spass2"))
-    restored2 = restored2 and not restored3
     if mesh is not None and not mesh.is_root:
         if not restored3 and not restored2:
             _mesh_passes(mesh, batch, config, bf, need_bloom, short_cap,
                          node_cap, slice_chunks, slice_arrays, timer, log)
+            timer.begin("coverage")
         _follow_coverage(mesh, config.k, c_total, slice_chunks, slice_arrays)
-        timer.mark("coverage")
         return pipe.share_result(mesh, timer)
     if restored3:
         pipe.root_part(mesh, rank0_alone)
         dbg, cov, reach_jun, reach_uni, chars = pipe.load_stage3(ckpt,
                                                                  device)
-        timer.mark("restore")
+        timer.begin("emit")
         log.write("[streaming] stage3 restored from checkpoint")
         if mesh is not None:
             _broadcast_graph(mesh, None)   # no coverage pass follows
-        result = pipe.finish(config, log, timer, t0, batch, write_output,
+        result = pipe.finish(config, log, timer, batch, write_output,
                              dbg, cov, reach_jun, reach_uni, chars, device,
-                             stage4="emit", solid_nodes=int(dbg.size),
+                             solid_nodes=int(dbg.size),
                              closure_rounds=0, simplify_drops=0, mesh=mesh)
         return result if mesh is None else pipe.share_result(mesh, timer,
                                                               result)
@@ -224,7 +235,7 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
             d["has_seed"]
         if need_bloom:
             bf = bf._replace(bits=d["bf_bits"])
-        timer.mark("restore_spass2")
+        timer.begin("graph")
         log.write("[streaming] passes 1+2 restored from checkpoint")
     else:
         passes = _passes if mesh is None else functools.partial(
@@ -232,6 +243,7 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
         table, min_pos, seed_fw, bf = passes(
             batch, config, bf, need_bloom, short_cap, node_cap,
             slice_chunks, slice_arrays, timer, log)
+        timer.begin("graph")
         pipe.root_part(mesh, rank0_alone)
         has_seed = min_pos < part_mod.NO_SEED
         if extra_solid:
@@ -260,7 +272,7 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
     dbg = pipe.run_stage2(nodes, size, bf, k=k,
                           use_exact=config.use_exact_membership)
     del nodes
-    timer.mark("graph")
+    timer.begin("coverage")
     log.write("[streaming] graph built")
 
     # ---- pass 3: coverage, one double-width slice at a time ----
@@ -271,28 +283,28 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
         return _coverage(dbg, k, c_total, slice_chunks, slice_arrays, mesh)
 
     cov = accumulate_coverage(dbg)
-    timer.mark("coverage")
+    timer.begin("simplify")
 
     simplify_drops = 0
     if config.clip_tips or config.pop_bubbles:
         dbg, (cov,), simplify_drops = pipe.simplify_graph(
             dbg, (cov,), None, bf, config, log,
             lambda dbg, _nid: (accumulate_coverage(dbg),), timer)
-    timer.mark("simplify")
+    timer.begin("reach_chars")
 
     if mesh is not None:
         _broadcast_graph(mesh, None)   # the last coverage pass is done
 
     reach_jun, reach_uni = reach_mod.reachable(dbg, seed_fw, has_seed, k)
     chars = seq_mod.member_chars(dbg, k)
-    timer.mark("reach_chars")
+    timer.begin("emit")
     if ckpt is not None:
         pipe.save_stage3(ckpt, dbg, cov, reach_jun, reach_uni, chars)
         log.write("[streaming] stage3 checkpoint saved")
 
-    result = pipe.finish(config, log, timer, t0, batch, write_output, dbg,
+    result = pipe.finish(config, log, timer, batch, write_output, dbg,
                          cov, reach_jun, reach_uni, chars, device,
-                         stage4="emit", solid_nodes=num_nodes,
+                         solid_nodes=num_nodes,
                          closure_rounds=0, simplify_drops=simplify_drops,
                          mesh=mesh)
     return result if mesh is None else pipe.share_result(mesh, timer, result)
@@ -300,8 +312,9 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
 
 def _passes(batch, config, bf, need_bloom, short_cap, node_cap,
             slice_chunks, slice_arrays, timer, log):
-    """Passes 1 and 2 with their histogram pre-passes.  Returns ``(node
-    table, min_pos, seed_fw, bf)``."""
+    """Passes 1 and 2 with their histogram pre-passes, from span
+    ``pass1_histogram``, which the caller began, to ``pass2_table``.
+    Returns ``(node table, min_pos, seed_fw, bf)``."""
     device = bf.bits.device
     k = config.k
     short_k = min(config.short_k, k)
@@ -329,7 +342,7 @@ def _passes(batch, config, bf, need_bloom, short_cap, node_cap,
             parts=parts)
     s_blks, caps, bases, total_rows = part_mod.plan_caps(
         h_tot.cpu().numpy(), h_max.cpu().numpy(), parts)
-    timer.mark("pass1_histogram")
+    timer.begin("pass1_collect")
     w_s = (l_s + 1) // 2
     log.write(f"[streaming] pass1 plan: {total_rows} buffer rows x "
               f"{w_s} key words + payload "
@@ -350,7 +363,7 @@ def _passes(batch, config, bf, need_bloom, short_cap, node_cap,
         raise RuntimeError("streaming pass-1 partition-buffer overflow -- "
                            "impossible with histogram-planned capacities; "
                            "indicates nondeterministic extraction (bug)")
-    timer.mark("pass1_collect")
+    timer.begin("pass1_count")
 
     # pass 1 count: one sort a partition, counts scattered to positions.
     counts = torch.zeros((total_s,), dtype=torch.int32, device=device)
@@ -361,7 +374,7 @@ def _passes(batch, config, bf, need_bloom, short_cap, node_cap,
                                               bases[p])
         n_short += nu
     del bufs, fills
-    timer.mark("pass1_count")
+    timer.begin("pass2_histogram")
     if 0 < short_cap < n_short:
         raise RuntimeError(
             f"short_cap {short_cap} overflow: {n_short} distinct "
@@ -378,7 +391,7 @@ def _passes(batch, config, bf, need_bloom, short_cap, node_cap,
             parts=parts, **solid_kw)
     s_blks, caps, bases, total_rows = part_mod.plan_caps(
         h_tot.cpu().numpy(), h_max.cpu().numpy(), parts)
-    timer.mark("pass2_histogram")
+    timer.begin("pass2_collect")
     w_k = (l_k + 1) // 2
     log.write(f"[streaming] pass2 plan: {total_rows} buffer rows x {w_k} "
               f"key words ({total_rows * 8 * w_k / 2**30:.2f} GiB), "
@@ -404,7 +417,7 @@ def _passes(batch, config, bf, need_bloom, short_cap, node_cap,
                            "impossible with histogram-planned capacities; "
                            "indicates nondeterministic extraction (bug)")
     del counts
-    timer.mark("pass2_collect")
+    timer.begin("pass2_dedup")
 
     # pass 2 count: dedup each partition; one sort of the disjoint
     # uniques gives the lex-sorted node table.
@@ -414,7 +427,7 @@ def _passes(batch, config, bf, need_bloom, short_cap, node_cap,
         outs.append(part_mod.dedup_partition(bufs, fills_h, p, bases[p],
                                              k=k))
     del bufs, fills
-    timer.mark("pass2_dedup")
+    timer.begin("pass2_table")
     n_total = sum(n for _, n in outs)
     if 0 < node_cap < n_total:
         raise RuntimeError(
@@ -429,7 +442,6 @@ def _passes(batch, config, bf, need_bloom, short_cap, node_cap,
     del outs
     table = part_mod.finalize_table(dst, n_total, k=k)
     del dst
-    timer.mark("pass2_table")
     log.write(f"[streaming] pass2 done: {int(table.size)} solid nodes")
     return table, min_pos, seed_fw, bf
 
@@ -468,7 +480,8 @@ def _mesh_passes(mesh, batch, config, bf, need_bloom, short_cap, node_cap,
                  slice_chunks, slice_arrays, timer, log):
     """Passes 1 and 2 over the mesh into hash-prefix-sharded tables of
     fixed capacity.  Overflow of a bucket or a table is summed over ranks
-    after each pass, and every rank raises JAX's message.  Returns
+    after each pass, and every rank raises JAX's message.  Spans run from
+    ``pass1``, which the caller began, to ``pass2_table``.  Returns
     ``(node table on rank 0 / None, min_pos, seed_fw, bf)``; the seeds and
     the OR-merged filter are the same on every rank."""
     device = mesh.device
@@ -495,7 +508,7 @@ def _mesh_passes(mesh, batch, config, bf, need_bloom, short_cap, node_cap,
         raise RuntimeError(f"sharded short-table overflow ({ovf} rows); "
                            f"re-run with larger short_cap / slack")
     n_short = int(sharded.all_reduce(mesh, stbl.size.reshape(1), "sum"))
-    timer.mark("pass1")
+    timer.begin("pass2")
     log.write(f"[streaming] pass1 done (mesh {mesh.size}): {n_short} "
               f"distinct short k-mers")
 
@@ -526,7 +539,7 @@ def _mesh_passes(mesh, batch, config, bf, need_bloom, short_cap, node_cap,
     if need_bloom:
         bf = bf._replace(bits=sharded.or_allreduce(mesh, bf.bits,
                                                    label="pass2 bloom"))
-    timer.mark("pass2")
+    timer.begin("pass2_table")
 
     # ---- the hash-disjoint shards -> one lex-sorted node table ----
     keys = sharded.gather_rows(mesh, ntbl.keys[:int(ntbl.size)],
@@ -541,7 +554,6 @@ def _mesh_passes(mesh, batch, config, bf, need_bloom, short_cap, node_cap,
                   f"{int(table.size)} solid nodes")
     del keys
     sharded.release_cache(mesh)
-    timer.mark("pass2_table")
     return table, min_pos, seed_fw, bf
 
 

@@ -3,9 +3,10 @@
 Replaces the reference's ``Logging`` class (``src/Logging.cpp``) which
 opens/closes ``./platanus3.log`` per line under a mutex and is called per
 graph NODE during traversal -- a measured serial bottleneck (SURVEY.md
-§5: ~550 KB of log for a 3 kb genome).  Here: buffered stage-level lines
-plus named COUNTERS (the per-node spam becomes metrics), flushed once per
-stage.  File format stays line-per-event so existing habits work.
+§5: ~550 KB of log for a 3 kb genome).  Here: stage-level lines, and a
+line a named count (``metric``) where the reference logged per node; each
+line is appended to the file as it is written.  File format stays
+line-per-event so existing habits work.
 
 Under a mesh of ranks (``parallel/sharded.py``) only rank 0 echoes and
 writes the file; the other ranks drop their lines.
@@ -29,7 +30,6 @@ class PipelineLog:
         self.path = path
         self.echo = echo
         self.lines = []
-        self.metrics = {}
         self._t0 = time.time()
 
     def write(self, text: str):
@@ -42,7 +42,6 @@ class PipelineLog:
         self.flush()
 
     def metric(self, name: str, value):
-        self.metrics[name] = value
         self.write(f"{name} : {value}")
 
     def flush(self):

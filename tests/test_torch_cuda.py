@@ -216,6 +216,69 @@ def test_gpu_assembly_equals_cpu(cuda):
         assert gpu.gfa_lines == cpu.gfa_lines
 
 
+def test_stage_timer_counts_a_planted_sync(cuda):
+    """Under tracing one ``.item()`` in a span is one host sync of that
+    span, the timer's barriers add none, and the sync debug mode is
+    restored afterwards."""
+    from platanus3_tpu_torch.utils.profiling import StageTimer
+    x = torch.arange(1000, device=cuda)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    with StageTimer(profile=True, device=cuda) as timer:
+        assert torch.cuda.get_sync_debug_mode() == 1       # "warn"
+        timer.begin("quiet")
+        y = x * 2
+        timer.begin("planted")
+        with timer.part("planted.item"):
+            assert (y + 1).sum().item() == 1000 * 999 + 1000
+        timer.begin("after")
+    assert torch.cuda.get_sync_debug_mode() == mode
+    rise = {n: c["host_syncs"] for n, c in timer.span_counts.items()}
+    assert rise == {"quiet": 0, "planted": 1, "planted.item": 1, "after": 0}
+    assert timer.counts()["host_syncs"] == 1
+    assert set(timer.peak_bytes) == {"quiet", "planted", "after"}
+
+
+@pytest.mark.parametrize("entry", [assemble, assemble_streaming])
+def test_gpu_trace_holds_a_range_for_every_span(cuda, tmp_path, entry):
+    """A traced run on the card: a ``p3.<span>`` range for every span of
+    its stats line, inside the traced window, parts inside their spans;
+    host syncs counted in every span."""
+    import json
+
+    from platanus3_tpu_torch.utils.profiling import (RANGE_PREFIX,
+                                                     TRACE_FILE,
+                                                     TRACE_WINDOW)
+    genome = sim.random_genome(3000, seed=5)
+    reads = sim.simulate_reads(genome, coverage=25, read_len=400, seed=6,
+                               sub_rate=0.01)
+    cfg = AssemblyConfig(k=25, chunk_len=512, log_path=None,
+                         trace_dir=str(tmp_path), profile_stages=True)
+    stats = entry(reads, cfg, write_output=False, device=cuda).stats
+    evs = json.loads((tmp_path / TRACE_FILE).read_text())["traceEvents"]
+
+    def ranges(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in evs
+                if e.get("name") == name
+                and e.get("cat") == "user_annotation"]
+
+    (window,) = ranges(TRACE_WINDOW)
+    span = None
+    for name in stats["stages"]:
+        (rng,) = ranges(RANGE_PREFIX + name)
+        assert window[0] <= rng[0] <= rng[1] <= window[1]
+        if "." in name:
+            assert span[0] <= rng[0] <= rng[1] <= span[1]
+        else:
+            span = rng
+    assert any(e.get("cat") == "kernel" for e in evs)
+    assert stats["counts"]["host_syncs"] >= 1
+    assert stats["counts"]["host_syncs"] == sum(
+        c["host_syncs"] for n, c in stats["span_counts"].items()
+        if "." not in n)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
 def test_gpu_multik_simplify_equals_cpu(cuda):
     """k = 32 then 64, tips and bubbles, Bloom membership in a 2^32-bit
     filter (the wide positions): the card's GFA equals the CPU's."""
