@@ -8,7 +8,12 @@ Phases, each of which ends the run with a nonzero exit on failure:
 1. device: no CUDA device, no run; prints the card's name and power limit
    as ``nvidia-smi`` gives them;
 2. build: compiles the CUDA kernels from ``platanus3_tpu_torch/csrc``;
-3. kernel vs plain: ``bloom_set_bits`` (through ``ops.bloom.bloom_add``)
+3. kernel vs plain: ``slice_kmers`` (through ``ops.slice_kmers``) against
+   its plain chain on the card in each mode (both histograms,
+   collect-short, collect-solid) at the chromosome run's slice shape (4096
+   chunks of 4096 bases, k = 25, short_k = 21): every output array-equal,
+   times from CUDA events.  Then ``bloom_set_bits`` (through
+   ``ops.bloom.bloom_add``)
    against the plain PyTorch build on the card, at a small shape, at the
    main run's shape (k = 32, 2^30 bits), at that shape with k = 64 and
    k = 128 (four and eight lanes) and with 2^32, 2^33 and 2^35 bits (the
@@ -79,8 +84,9 @@ Phases, each of which ends the run with a nonzero exit on failure:
 10. E. coli streaming: phase 8's arguments plus ``--streaming
     --slice-chunks 2048``.  Phase 8's Bloom closure must have added no
     node (streaming runs none); then the GFA must equal phase 8's line for
-    line, with one ``bloom_set_bits`` launch a slice; prints the spans and
-    peak memory;
+    line, with one ``bloom_set_bits`` launch a slice and four
+    ``slice_kmers`` launches a slice (one a slice pass); prints the spans
+    and peak memory;
 11. threshold sweep (BASELINE config 2): ``sweep.solid_threshold_sweep``
     on the main reads at k = 32, thresholds 1, 2, 3, 4, 6 and 8, against
     the genome; ``n_solid`` must not rise with the threshold and the best
@@ -92,7 +98,9 @@ Phases, each of which ends the run with a nonzero exit on failure:
     --chunk-len 4096 --slice-chunks 4096 --membership bloom -m
     8589934592``; the straights must cover >= 0.9 of the genome, >= 0.9
     of their bases as exact genome substrings, with one ``bloom_set_bits``
-    launch a slice and a peak below 80 GB of device memory; prints every
+    launch a slice, four ``slice_kmers`` launches a slice and a peak below
+    80 GB of device memory; the ``kernels`` line gives this run's
+    ``slice_kmers`` launches; prints every
     span and its peak, nodes, straights, junctions and N50;
 13. sharded main run: phase 8's arguments plus ``--mesh`` through the CLI
     under ``torch.distributed.run`` with 4 ranks on the card (gloo: the
@@ -168,6 +176,7 @@ CHR21_ARGS = ["--streaming", "-k", "25", "--cov-threshold", "3",
               "--chunk-len", "4096", "--slice-chunks", "4096",
               "--membership", "bloom", "-m", str(1 << 33)]
 CHR21_SLICE_CHUNKS = 4096
+CHUNK_LEN_CHR21 = 4096
 SLICE_ROWS = 4096 * (4096 - 25 + 1)
 ECOLI_SLICE_CHUNKS = 2048
 # The sharded tables' capacities of phases 14 and 15 (log2 of the whole
@@ -195,6 +204,10 @@ FP_PROBES = 1_000_000
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
 BLOOM_SOURCE = "platanus3_tpu_torch/csrc/bloom.cu"
 OA_SOURCE = "platanus3_tpu_torch/csrc/count_oa.cu"
+SLICE_KMERS_SOURCE = "platanus3_tpu_torch/csrc/slice_kmers.cu"
+# slice_kmers at the chromosome run's slice shape: k = 25, short_k = 21,
+# coverage threshold 3; reads of four chunks.
+SLICE_K, SLICE_SHORT_K, SLICE_THRESHOLD, SLICE_READ_CHUNKS = 25, 21, 3, 4
 
 
 def log(msg: str) -> None:
@@ -357,6 +370,86 @@ def bloom_slice_shape():
     return {"shape": shape, "k": 25, "log2_bits": 33, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "library_ms": None, "passes": passes}
+
+
+def slice_kmers_inputs(device):
+    """One slice of the chromosome run's shape: 4096 chunks of 4096
+    random bases, reads of four chunks (the last with a tail shorter than
+    a chunk), and per-position short counts drawn from 0-9."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(7)
+    c = CHR21_SLICE_CHUNKS
+    stride = CHUNK_LEN_CHR21 - SLICE_K + 1
+    p_short = CHUNK_LEN_CHR21 - SLICE_SHORT_K + 1
+    packed = torch.randint(0, 1 << 32, (c, CHUNK_LEN_CHR21 // 16),
+                           generator=gen, device=device, dtype=torch.int64)
+    nth = torch.arange(c, device=device) % SLICE_READ_CHUNKS
+    start = nth * stride
+    rlen = torch.full((c,), (SLICE_READ_CHUNKS - 1) * stride + 2000,
+                      dtype=torch.int64, device=device)
+    vlen = torch.clamp(rlen - start, max=CHUNK_LEN_CHR21)
+    counts = torch.randint(0, 10, (c * p_short,), generator=gen,
+                           device=device, dtype=torch.int32)
+    return packed, vlen, start, rlen, counts
+
+
+def slice_kmers_shapes(reps: int = 20, plain_reps: int = 3):
+    """``slice_kmers`` against its plain chain in each mode at one
+    chromosome slice: outputs array-equal, then the kernel's and the plain
+    chain's mean times.  The bound reads the packed words, the chunk
+    arrays and (pass 2) the counts once and writes the outputs once.
+    Returns one measurement dict a mode."""
+    import torch
+    from platanus3_tpu_torch.ops import partitioned, slice_kmers as sk
+    dev = torch.device("cuda")
+    packed, vlen, start, rlen, counts = slice_kmers_inputs(dev)
+    parts = partitioned.NUM_PARTS
+    chunk_in = nbytes(packed, vlen, start, rlen)
+    out = []
+    for mode, solid, collect in (("short histogram", False, False),
+                                 ("solid histogram", True, False),
+                                 ("collect-short", False, True),
+                                 ("collect-solid", True, True)):
+        if solid:
+            kw = dict(k=SLICE_K, short_k=SLICE_SHORT_K,
+                      cov_threshold=SLICE_THRESHOLD, parts=parts,
+                      collect=collect)
+            fused = lambda: sk.solid_slice(  # noqa: E731
+                counts, packed, vlen, start, rlen, 0, **kw)
+            plain = lambda: sk.solid_slice_plain(  # noqa: E731
+                counts, packed, vlen, start, rlen, 0, **kw)
+        else:
+            kw = dict(k=SLICE_K, short_k=SLICE_SHORT_K, parts=parts,
+                      collect=collect)
+            fused = lambda: sk.short_slice(  # noqa: E731
+                packed, vlen, start, rlen, 0, **kw)
+            plain = lambda: sk.short_slice_plain(  # noqa: E731
+                packed, vlen, start, rlen, 0, **kw)
+        got, want = fused(), plain()
+        got, want = ((got,), (want,)) if not collect else (got, want)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"slice_kmers {mode} differs from the "
+                                 f"plain chain")
+        rows = int(got[0].sum()) if not collect else int(
+            (got[1 if solid else 2] < parts).sum())
+        if rows == 0:
+            raise AssertionError(f"slice_kmers {mode}: no row kept")
+        bound = bytes_bound_ms(chunk_in + (nbytes(counts) if solid else 0)
+                               + nbytes(*got))
+        del got, want
+        ms = cuda_time_ms(fused, reps)
+        plain_ms = cuda_time_ms(plain, plain_reps)
+        torch.cuda.empty_cache()
+        log(f"slice_kmers {mode} (4096 x 4096 bases, k={SLICE_K}, "
+            f"short_k={SLICE_SHORT_K}, {rows} rows kept): array-equal, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms")
+        out.append({"shape": f"{mode}: 4096 chunks x 4096 bases, "
+                             f"k={SLICE_K}, short_k={SLICE_SHORT_K}",
+                    "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "library_ms": None})
+    return out
 
 
 def bloom_rank_shapes(owned_positions: int):
@@ -827,12 +920,14 @@ def check_quality(gfa: Path, genome: str, what: str,
 
 
 def cli_run(workdir: Path, fasta: Path, args, device: str = "cuda"):
-    """``cli.main`` on ``fasta`` with ``args``, with ``bloom_set_bits``'s
-    launch count set to 0 just before and read just after.  Returns
-    (wall s, launches, GFA path, stats of every round)."""
+    """``cli.main`` on ``fasta`` with ``args``, with the launch counts of
+    ``bloom_set_bits`` and ``slice_kmers`` set to 0 just before and read
+    just after.  Returns (wall s, bloom_set_bits launches, slice_kmers
+    launches, GFA path, stats of every round)."""
     import torch
     from platanus3_tpu_torch import cli
     from platanus3_tpu_torch.ops import bloom
+    from platanus3_tpu_torch.ops import slice_kmers as sk
 
     def sync():
         if device == "cuda":
@@ -841,6 +936,7 @@ def cli_run(workdir: Path, fasta: Path, args, device: str = "cuda"):
     gfa, run_log = workdir / "out.gfa", workdir / "run.log"
     run_log.unlink(missing_ok=True)
     bloom.bloom_add.kernel_launches = 0
+    sk.slice_kmers.kernel_launches = 0
     sync()
     t1 = time.time()
     rc = cli.main(["-i", str(fasta), *args, "-o", str(gfa), "--log",
@@ -848,12 +944,13 @@ def cli_run(workdir: Path, fasta: Path, args, device: str = "cuda"):
     sync()
     wall = time.time() - t1
     launches = bloom.bloom_add.kernel_launches
+    slice_launches = sk.slice_kmers.kernel_launches
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
     stats = run_stats(run_log)
     if not stats:
         raise AssertionError("no stats line in the run log")
-    return wall, launches, gfa, stats
+    return wall, launches, slice_launches, gfa, stats
 
 
 MAIN_ARGS = ["-k", "32", "-m", str(MAIN_FILTER_BITS), "--membership",
@@ -862,8 +959,8 @@ MAIN_ARGS = ["-k", "32", "-m", str(MAIN_FILTER_BITS), "--membership",
 
 def main_run(workdir: Path, genome: str, fasta: Path, device: str = "cuda"):
     """Phase 8's run.  Returns (launches, stats, a copy of its GFA)."""
-    wall, launches, gfa, (stats,) = cli_run(workdir, fasta, MAIN_ARGS,
-                                            device)
+    wall, launches, _, gfa, (stats,) = cli_run(workdir, fasta, MAIN_ARGS,
+                                               device)
     log(f"main: cli wall {wall:.3f} s; stages (s): "
         + json.dumps(stats["stages"]))
     log(f"main: load span (C++ read loader) {stats['stages']['load']:.4f} s")
@@ -921,7 +1018,7 @@ def traced_main_run(workdir: Path, fasta: Path):
     """Phase 8 again with ``--trace-dir``: ``bloom_set_bits`` must be
     among the trace's kernels.  Returns (launches, trace summary)."""
     trace_dir = workdir / "trace"
-    wall, launches, _, (stats,) = cli_run(
+    wall, launches, _, _, (stats,) = cli_run(
         workdir, fasta, MAIN_ARGS + ["--trace-dir", str(trace_dir)])
     from platanus3_tpu_torch.utils.profiling import TRACE_FILE
     trace = trace_dir / TRACE_FILE
@@ -1004,7 +1101,7 @@ def multik_run(workdir: Path, genome: str, fasta: Path,
     share is printed, not held (the reference's bubble rule, ROADMAP.md
     Queue 3).  Returns (launches, exact-substring share)."""
     what = "multi-k" if pop_bubbles else "multi-k without bubble popping"
-    wall, launches, gfa, rounds = cli_run(
+    wall, launches, _, gfa, rounds = cli_run(
         workdir, fasta, ["--k-list", ",".join(map(str, MULTIK_K_LIST)),
                          "--clip-tips",
                          *(["--pop-bubbles"] if pop_bubbles else []), "-m",
@@ -1040,17 +1137,19 @@ def log_spans(what: str, stats: dict) -> None:
 def ecoli_streaming_run(workdir: Path, genome: str, fasta: Path, chunks: int,
                         main_stats: dict, main_gfa: Path):
     """Phase 8's run through streaming, 2048 chunks a slice: the same GFA,
-    one ``bloom_set_bits`` launch a slice.  Returns launches."""
+    one ``bloom_set_bits`` launch a slice and one ``slice_kmers`` launch a
+    slice pass (four a slice).  Returns the ``bloom_set_bits`` launches."""
     if main_stats["closure_rounds"] != 0 or \
             main_stats["graph_nodes"] != main_stats["solid_nodes"]:
         raise AssertionError("E. coli streaming: phase 8's Bloom closure "
                              "added nodes, which streaming never adds")
-    wall, launches, gfa, (stats,) = cli_run(
+    wall, launches, slice_launches, gfa, (stats,) = cli_run(
         workdir, fasta, MAIN_ARGS + ["--streaming", "--slice-chunks",
                                      str(ECOLI_SLICE_CHUNKS)])
     slices = -(-chunks // ECOLI_SLICE_CHUNKS)
     log(f"E. coli streaming: cli wall {wall:.3f} s, {slices} slices, "
-        f"bloom_set_bits launches {launches}, solid nodes "
+        f"bloom_set_bits launches {launches}, slice_kmers launches "
+        f"{slice_launches}, solid nodes "
         f"{stats['solid_nodes']}, straights {stats['straights']}, junctions "
         f"{stats['junctions']}, N50 {stats['straight_n50']}")
     log_spans("E. coli streaming", stats)
@@ -1059,6 +1158,9 @@ def ecoli_streaming_run(workdir: Path, genome: str, fasta: Path, chunks: int,
     if launches != slices:
         raise AssertionError(f"E. coli streaming: {launches} bloom_set_bits "
                              f"launches for {slices} slices")
+    if slice_launches != 4 * slices:
+        raise AssertionError(f"E. coli streaming: {slice_launches} "
+                             f"slice_kmers launches for {slices} slices")
     return launches
 
 
@@ -1090,8 +1192,9 @@ def sweep_run(genome: str, fasta: Path):
 
 
 def chr21_run(workdir: Path):
-    """The chromosome-sized streaming run (phase 12).  Returns (launches,
-    slices, its FASTA, a copy of its GFA); phase 15 deletes the FASTA."""
+    """The chromosome-sized streaming run (phase 12).  Returns
+    (``bloom_set_bits`` launches, ``slice_kmers`` launches, slices, its
+    FASTA, a copy of its GFA); phase 15 deletes the FASTA."""
     from platanus3_tpu_torch import sim
     t = time.time()
     genome = sim.random_genome(CHR21_GENOME_LEN, seed=0)
@@ -1108,10 +1211,12 @@ def chr21_run(workdir: Path):
     chunks = sum((len(r) - 25) // stride + 1 for r in reads if len(r) >= 25)
     slices = -(-chunks // CHR21_SLICE_CHUNKS)
     del reads
-    wall, launches, gfa, (stats,) = cli_run(workdir, fasta, CHR21_ARGS)
+    wall, launches, slice_launches, gfa, (stats,) = cli_run(workdir, fasta,
+                                                            CHR21_ARGS)
     peak = max(stats.get("peak_bytes", {}).values(), default=0)
     log(f"chr21: cli wall {wall:.3f} s, {chunks} chunks in {slices} slices, "
-        f"bloom_set_bits launches {launches}, solid nodes "
+        f"bloom_set_bits launches {launches}, slice_kmers launches "
+        f"{slice_launches}, solid nodes "
         f"{stats['solid_nodes']}, graph nodes {stats['graph_nodes']}, "
         f"straights {stats['straights']}, junctions {stats['junctions']}, "
         f"N50 {stats['straight_n50']}, peak device memory {peak} bytes")
@@ -1122,11 +1227,14 @@ def chr21_run(workdir: Path):
     if launches != slices:
         raise AssertionError(f"chr21: {launches} bloom_set_bits launches "
                              f"for {slices} slices")
+    if slice_launches != 4 * slices:
+        raise AssertionError(f"chr21: {slice_launches} slice_kmers launches "
+                             f"for {slices} slices")
     if peak >= DEVICE_BYTES_LIMIT:
         raise AssertionError(f"chr21: peak device memory {peak} bytes")
     kept = workdir / "chr21.gfa"
     shutil.copyfile(gfa, kept)
-    return launches, slices, fasta, kept
+    return launches, slice_launches, slices, fasta, kept
 
 
 def run_ranks(args, what: str, timeout: float = MESH_TIMEOUT_S) -> float:
@@ -1377,6 +1485,7 @@ def main() -> int:
     log(f"build: {kernels.library_path().name} in {time.time() - t:.2f} s "
         f"({lib._name})")
 
+    slice_shapes = slice_kmers_shapes()
     small = kernel_vs_plain(50_000, 40_000, 25, 16, 3, seed=1, reps=20)
     log(f"kernel small (50000 rows, k=25, 2^16 bits, 3 hashes): "
         f"max_abs_err {small[0]}, kernel {small[1]:.4f} ms, "
@@ -1468,8 +1577,8 @@ def main() -> int:
         f"reference (ROADMAP.md Queue 3)")
     del genome
     with tempfile.TemporaryDirectory() as tmp:
-        launches["chr21 streaming"], slices, fasta, chr21_gfa = chr21_run(
-            Path(tmp))
+        (launches["chr21 streaming"], chr21_slice_launches, slices, fasta,
+         chr21_gfa) = chr21_run(Path(tmp))
         torch.cuda.empty_cache()
         launches["sharded chr21 streaming"] = mesh_streaming_run(
             Path(tmp), fasta, CHR21_ARGS + CHR21_MESH_CAPS, slices, chr21_gfa,
@@ -1507,8 +1616,15 @@ def main() -> int:
                    else f"{m['rows']} rows, k={MAIN_K}, 2^{key} bits"),
          "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "library_ms": None} for key, m in bb.items()]
+    sk_entry = kernel_entry(
+        "slice_kmers", SLICE_KMERS_SOURCE, None,
+        chr21_slice_launches, 0,
+        slice_shapes[2]["ms"], slice_shapes[2]["plain_ms"],
+        slice_shapes[2]["bound_ms"])
+    sk_entry["shapes"] = slice_shapes
     log(f"chip_smoke: all phases in {time.time() - started:.1f} s")
-    log(json.dumps({"kernels": [bloom_entry, oa_entry, bb_entry]}))
+    log(json.dumps({"kernels": [bloom_entry, oa_entry, bb_entry,
+                                sk_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,13 +8,14 @@ shared library with a plain C interface, which is loaded with ``ctypes``
 and header in ``csrc/``, so an edited file is rebuilt and never served
 stale.
 
-Each kernel runs as several passes (``bloom_set_bits``,
-``oa_count_insert``, ``bloom_blocked_set_bits``) and is launched by a
-generator in its wrapper's module that yields after each pass;
-``run_passes`` runs one to its end, and ``chip_smoke.py`` steps through
-one to time each pass.  All three partition their items in two levels
+The three partitioning kernels run as several passes
+(``bloom_set_bits``, ``oa_count_insert``, ``bloom_blocked_set_bits``) and
+are launched by a generator in their wrapper's module that yields after
+each pass; ``run_passes`` runs one to its end, and ``chip_smoke.py`` steps
+through one to time each pass.  They partition their items in two levels
 (``csrc/partition.cuh``); ``partition_levels``, ``partition_ctas`` and
 ``partition_offsets`` size the passes and scan between them.
+``slice_kmers`` (``ops/slice_kmers.py``) is one launch.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU machines have no ``nvcc``.
@@ -133,7 +134,9 @@ def load_library():
             ("oa_partition_scatter", [vp, vp, ll, i, u, i, i, i, vp, vp,
                                       vp]),
             ("oa_partition_refine", [vp, vp, vp, i, u, i, i, vp, vp, vp]),
-            ("oa_block_insert", [vp, vp, vp, i, u, i, vp, vp, vp, vp])):
+            ("oa_block_insert", [vp, vp, vp, i, u, i, vp, vp, vp, vp]),
+            ("slice_kmers", [i, vp, vp, vp, vp, vp, ll, i, i, i, i, i, ll, u,
+                             vp, vp, vp, vp, vp, vp, vp])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, i
     _lib = lib

@@ -20,10 +20,12 @@ sorts a whole table:
       concatenation gives the lex-sorted node table of the single-shot
       pipeline.
 
-Capacities come from a histogram pre-pass per pass (``plan_caps``, as in
-the JAX package, whose ``_part_of`` hash and seed are kept so that
-histograms and plans compare array-equal).  What differs from the JAX
-package:
+Each slice pass reads its slice through ``ops/slice_kmers.py``: one
+launch of the ``slice_kmers`` kernel a slice pass on the card (k <= 32),
+the plain PyTorch chain elsewhere.  Capacities come from a histogram
+pre-pass per pass (``plan_caps``, as in the JAX package, whose
+``_part_of`` hash and seed are kept so that histograms and plans compare
+array-equal).  What differs from the JAX package:
 
 * a buffer set is a tuple of tensors: the rows' ``[rows, W]`` int64 order
   keys (``count.order_keys``: W = ceil(L/2) words), and in pass 1 an
@@ -46,10 +48,8 @@ import torch
 
 from platanus3_tpu_torch.ops import bloom as bloom_mod
 from platanus3_tpu_torch.ops import count as count_mod
-from platanus3_tpu_torch.ops import hashing as hash_mod
 from platanus3_tpu_torch.ops import kmer as kmer_mod
-from platanus3_tpu_torch.ops import solid as solid_mod
-from platanus3_tpu_torch.ops.windowmin import window_min
+from platanus3_tpu_torch.ops import slice_kmers as sk
 
 __all__ = ["NUM_PARTS", "plan_caps", "histogram_short_slice",
            "histogram_solid_slice", "collect_short_slice",
@@ -60,9 +60,7 @@ __all__ = ["NUM_PARTS", "plan_caps", "histogram_short_slice",
 # compare one to one).
 NUM_PARTS = 16
 
-_PART_SEED = 0x51C3A27D
-_MSB = 1 << 31
-NO_SEED = 2 ** 30          # min_pos of a read without a seed
+NO_SEED = sk.NO_SEED       # min_pos of a read without a seed
 
 
 def plan_caps(hist_total, hist_slice_max, parts: int):
@@ -97,18 +95,6 @@ def plan_caps(hist_total, hist_slice_max, parts: int):
             bases[-1] + caps[-1])
 
 
-def _part_of(canon, kk: int, valid, parts: int):
-    """Hash partition id per row (int64; ``parts`` = dropped)."""
-    h = hash_mod.hash_kmers(canon, kk, seed=_PART_SEED)
-    return torch.where(valid, h & (parts - 1), parts)
-
-
-def _bincount(part, parts: int):
-    """Rows per partition of ``part`` (``[parts]`` int64; the dropped id
-    ``parts`` is not counted)."""
-    return torch.bincount(part, minlength=parts + 1)[:parts]
-
-
 def make_buffers(total_rows: int, words: int, payload: bool, device):
     """An empty buffer set: ``[total_rows, words]`` order keys and, with
     ``payload``, ``[total_rows]`` int32 payloads.  Unwritten rows are
@@ -128,7 +114,7 @@ def _append_partitioned(cols, part, bufs, fills, ovf, *, parts, s_blks,
     (a slice above its block, or a partition above its capacity less one
     block); planned capacities cannot trip it."""
     dev = part.device
-    cnt = _bincount(part, parts)
+    cnt = sk.part_counts(part, parts)
     s_blk = torch.tensor(s_blks, dtype=torch.int64, device=dev)
     cap = torch.tensor(caps, dtype=torch.int64, device=dev)
     ovf = ovf | ((cnt > s_blk) | (fills + cnt > cap - s_blk)).any()
@@ -144,40 +130,12 @@ def _append_partitioned(cols, part, bufs, fills, ovf, *, parts, s_blks,
     return bufs, fills + cnt, ovf
 
 
-def _short_slice(packed, vlen, start, rlen, k: int, short_k: int):
-    """Canonical short k-mers of a slice and their valid / owned masks."""
-    bases = kmer_mod.unpack_bases(packed)
-    stride = bases.shape[1] - k + 1
-    return solid_mod.short_kmer_positions(bases, vlen, start, rlen, stride,
-                                          short_k, k)
-
-
-def _solid_slice(counts, packed, vlen, start, rlen, posbase_s, *, k,
-                 short_k, cov_threshold):
-    """Window-min solidity of a slice from the per-position counts (one
-    contiguous ``narrow`` of ``counts``).  Returns ``(fw, canon,
-    solid_owned)`` of the k-mers, ``[C, Pk, L]`` and ``[C, Pk]``."""
-    bases = kmer_mod.unpack_bases(packed)
-    c, chunk_len = bases.shape
-    stride = chunk_len - k + 1
-    p_short = chunk_len - short_k + 1
-    per_pos = counts.narrow(0, posbase_s, c * p_short).reshape(c, p_short)
-    cov_est = window_min(per_pos, k - short_k + 1)
-    fw, valid_k = kmer_mod.extract_kmers(bases, vlen, k)
-    canon, _ = kmer_mod.canonical(fw, k)
-    owned_k = solid_mod.owned_mask(start, rlen, stride, fw.shape[1], k,
-                                   k) & valid_k
-    return fw, canon, (cov_est >= cov_threshold) & valid_k & owned_k
-
-
 def histogram_short_slice(hist_total, hist_max, packed, vlen, start, rlen,
                           *, k, short_k, parts):
     """Pre-pass: per-partition valid-row counts of one slice; updates the
     running totals and per-slice maxima (``[parts]`` int64 each)."""
-    s_canon, s_valid, _ = _short_slice(packed, vlen, start, rlen, k,
-                                       short_k)
-    h = _bincount(_part_of(s_canon, short_k, s_valid, parts).reshape(-1),
-                  parts)
+    h = sk.short_slice(packed, vlen, start, rlen, k=k, short_k=short_k,
+                       parts=parts, collect=False)
     return hist_total + h, torch.maximum(hist_max, h)
 
 
@@ -186,10 +144,9 @@ def histogram_solid_slice(hist_total, hist_max, counts, packed, vlen, start,
                           parts):
     """Pre-pass for the node buffers: per-partition SOLID OWNED row counts
     of one slice (the collect's solidity)."""
-    _, canon, solid_owned = _solid_slice(
-        counts, packed, vlen, start, rlen, posbase_s, k=k, short_k=short_k,
-        cov_threshold=cov_threshold)
-    h = _bincount(_part_of(canon, k, solid_owned, parts).reshape(-1), parts)
+    h = sk.solid_slice(counts, packed, vlen, start, rlen, posbase_s, k=k,
+                       short_k=short_k, cov_threshold=cov_threshold,
+                       parts=parts, collect=False)
     return hist_total + h, torch.maximum(hist_max, h)
 
 
@@ -198,13 +155,9 @@ def collect_short_slice(bufs, fills, ovf, packed, vlen, start, rlen, posbase,
     """Pass-1 collect: append this slice's valid canonical short k-mers as
     (order key, posid | owned << 31) rows.  ``posbase``: global position
     id of the slice's first chunk-local position."""
-    s_canon, s_valid, s_owned = _short_slice(packed, vlen, start, rlen, k,
-                                             short_k)
-    n = s_canon.shape[0] * s_canon.shape[1]
-    okey = count_mod.order_keys(s_canon.reshape(n, -1))
-    pos = posbase + torch.arange(n, dtype=torch.int64, device=okey.device)
-    pay = torch.where(s_owned.reshape(n), pos - _MSB, pos).to(torch.int32)
-    part = _part_of(s_canon, short_k, s_valid, parts).reshape(n)
+    okey, pay, part = sk.short_slice(packed, vlen, start, rlen, posbase,
+                                     k=k, short_k=short_k, parts=parts,
+                                     collect=True)
     return _append_partitioned((okey, pay), part, bufs, fills, ovf,
                                parts=parts, s_blks=s_blks, caps=caps,
                                bases=bases)
@@ -250,31 +203,27 @@ def solid_collect_slice(bufs, fills, ovf, min_pos, seed_fw, bf, counts,
     slice's winner replaces the seed only where it comes earlier.  Owned
     positions of one read are distinct, so each read has at most one
     winning chunk."""
-    fw, canon, solid_owned = _solid_slice(
+    okey, part, chunk_min, chunk_fw = sk.solid_slice(
         counts, packed, vlen, start, rlen, posbase_s, k=k, short_k=short_k,
-        cov_threshold=cov_threshold)
-    c, pk, lk = canon.shape
-    dev = canon.device
+        cov_threshold=cov_threshold, parts=parts, collect=True)
+    lk = chunk_fw.shape[1]
+    dev = okey.device
     if add_bloom:
-        bf = bloom_mod.bloom_add(bf, canon.reshape(-1, lk), k,
-                                 mask=solid_owned.reshape(-1))
+        bf = bloom_mod.bloom_add(bf, count_mod.key_lanes(okey, lk), k,
+                                 mask=part < parts)
 
-    gpos = start[:, None] + torch.arange(pk, dtype=torch.int64,
-                                         device=dev)[None, :]
-    chunk_min, arg = torch.where(solid_owned, gpos, NO_SEED).min(dim=1)
     batch_min = torch.full((num_reads,), NO_SEED, dtype=torch.int64,
                            device=dev)
     batch_min.scatter_reduce_(0, rid, chunk_min, reduce="amin")
     win = (chunk_min < NO_SEED) & (chunk_min == batch_min[rid])
-    rows = torch.arange(c, device=dev)[win]
-    batch_seed = torch.zeros_like(seed_fw)
-    batch_seed[rid[win]] = fw[rows, arg[win]]
-    seed_fw = torch.where((batch_min < min_pos)[:, None], batch_seed,
-                          seed_fw)
+    # Losing chunks write to a spare row, so no mask is read on the host.
+    batch_seed = torch.zeros((num_reads + 1, lk), dtype=torch.int64,
+                             device=dev)
+    batch_seed[torch.where(win, rid, num_reads)] = chunk_fw
+    seed_fw = torch.where((batch_min < min_pos)[:, None],
+                          batch_seed[:num_reads], seed_fw)
     min_pos = torch.minimum(min_pos, batch_min)
 
-    okey = count_mod.order_keys(canon.reshape(c * pk, lk))
-    part = _part_of(canon, k, solid_owned, parts).reshape(-1)
     bufs, fills, ovf = _append_partitioned(
         (okey,), part, bufs, fills, ovf, parts=parts, s_blks=s_blks,
         caps=caps, bases=bases)

@@ -54,6 +54,7 @@ from platanus3_tpu_torch.io import reads as reads_mod
 from platanus3_tpu_torch.ops import bloom as bloom_mod
 from platanus3_tpu_torch.ops import count as count_mod
 from platanus3_tpu_torch.ops import kmer as kmer_mod
+from platanus3_tpu_torch.ops import slice_kmers as slice_mod
 from platanus3_tpu_torch.ops import solid as solid_mod
 from platanus3_tpu_torch.parallel import sharded
 from platanus3_tpu_torch.utils import checkpoint as ckpt_mod
@@ -405,7 +406,9 @@ def mesh_flags(mesh, *flags):
 # Process-wide counts whose rise over each span and over the run the stats
 # line gives (and each rank reports on a mesh).
 RUN_COUNTERS = {"bloom_set_bits_launches":
-                lambda: bloom_mod.bloom_add.kernel_launches}
+                lambda: bloom_mod.bloom_add.kernel_launches,
+                "slice_kmers_launches":
+                lambda: slice_mod.slice_kmers.kernel_launches}
 
 
 def run_timer(config, device, mesh) -> StageTimer:

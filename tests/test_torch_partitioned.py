@@ -4,9 +4,12 @@ against function, tolerance "exact".
 Both packages' pass functions are driven slice by slice over the same
 batch, as their ``assemble_streaming`` drives them: the pass-1 histograms
 and capacity plan, the per-position counts array and the distinct short
-k-mer count, the pass-2 histograms and plan, the seeds, the Bloom words
-and the node table.  k = 25 keys are one order word, k = 33 keys two.
+k-mer count, the pass-2 histograms and plan, the rows of every partition of both
+buffer sets, the seeds, the Bloom words and the node table.  k = 25 keys
+are one order word, k = 33 keys two.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +21,7 @@ from platanus3_tpu.io import reads as j_reads
 from platanus3_tpu.ops import bloom as j_bloom
 from platanus3_tpu.ops import partitioned as jp
 from platanus3_tpu_torch.ops import bloom as t_bloom
+from platanus3_tpu_torch.ops import count as t_count
 from platanus3_tpu_torch.ops import partitioned as tp
 
 SHORT_K, CHUNK_LEN, SLICE, THRESHOLD, PARTS = 21, 256, 8, 2, 16
@@ -55,6 +59,26 @@ def t_slice(b, lo, hi):
             for f in FIELDS]
 
 
+def partition_rows(cols, bases, fills):
+    """Each partition's rows ``[fills[p], columns]`` (uint32), sorted:
+    rows may come in any order within a partition (the JAX package's
+    sort is not stable)."""
+    rows = np.stack([np.asarray(c).astype(np.uint32) for c in cols], axis=1)
+    out = []
+    for p in range(PARTS):
+        r = rows[bases[p]:bases[p] + int(fills[p])]
+        out.append(r[np.lexsort(r.T[::-1])])
+    return out
+
+
+def t_columns(bufs, lanes):
+    """A torch buffer set as the JAX package's columns: the order keys'
+    lanes, then the payload."""
+    lanes_ = t_count.key_lanes(bufs[0], lanes).numpy()
+    cols = [lanes_[:, j] for j in range(lanes)]
+    return cols + [b.numpy().view(np.uint32) for b in bufs[1:]]
+
+
 def run_jax(b, k):
     out = {}
     p_short = CHUNK_LEN - SHORT_K + 1
@@ -76,6 +100,7 @@ def run_jax(b, k):
             bufs, fills, ovf, packed, vlen, start, rlen,
             np.int32(lo * p_short), k=k, short_k=SHORT_K, parts=PARTS,
             s_blks=s_blks, caps=caps, bases=bases)
+    out["bufs1"] = partition_rows(bufs, bases, np.asarray(fills))
     counts = jnp.zeros((total_s,), jnp.int32)
     n_short = 0
     for p in range(PARTS):
@@ -109,6 +134,7 @@ def run_jax(b, k):
             num_reads=b.num_reads, parts=PARTS, s_blks=s_blks, caps=caps,
             bases=bases, add_bloom=True, bf_log2=BLOOM_LOG2,
             bf_hashes=HASHES)
+    out["bufs2"] = partition_rows(bufs, bases, np.asarray(fills))
     out["min_pos"], out["seed_fw"] = np.asarray(min_pos), np.asarray(seed_fw)
     out["bloom"] = np.asarray(bf_bits)
     outs, n_ps = [], []
@@ -154,6 +180,8 @@ def run_torch(b, k):
             short_k=SHORT_K, parts=PARTS, s_blks=s_blks, caps=caps,
             bases=bases)
     assert not bool(ovf)
+    out["bufs1"] = partition_rows(t_columns(bufs, (SHORT_K + 15) // 16),
+                                  bases, fills.numpy())
     counts = torch.zeros((total_s,), dtype=torch.int32)
     n_short = 0
     for p in range(PARTS):
@@ -184,6 +212,7 @@ def run_torch(b, k):
             cov_threshold=THRESHOLD, num_reads=b.num_reads, parts=PARTS,
             s_blks=s_blks, caps=caps, bases=bases, add_bloom=True)
     assert not bool(ovf)
+    out["bufs2"] = partition_rows(t_columns(bufs, l_k), bases, fills.numpy())
     out["min_pos"], out["seed_fw"] = min_pos.numpy(), seed_fw.numpy()
     out["bloom"] = bf.bits.numpy().view(np.uint32)
     outs = [tp.dedup_partition(bufs, fills, p, bases[p], k=k)
@@ -200,11 +229,17 @@ def run_torch(b, k):
     return out
 
 
-@pytest.mark.parametrize("k", [25, 33])
-def test_partitioned_passes_identical(k):
+@functools.lru_cache(maxsize=None)
+def runs(k):
+    """Both packages' passes over one batch, once a k for this file."""
     b = batch(k)
     assert b.num_chunks > 2 * SLICE
-    j, t = run_jax(b, k), run_torch(b, k)
+    return run_jax(b, k), run_torch(b, k)
+
+
+@pytest.mark.parametrize("k", [25, 33])
+def test_partitioned_passes_identical(k):
+    j, t = runs(k)
     for name in ("hist1", "hist2"):
         for a, w in zip(t[name], j[name]):
             assert np.array_equal(a, w.astype(np.int64)), name
@@ -217,3 +252,15 @@ def test_partitioned_passes_identical(k):
     assert np.array_equal(t["bloom"], j["bloom"])
     assert t["table"][1] == j["table"][1] > 0
     assert np.array_equal(t["table"][0], j["table"][0].astype(np.int64))
+
+
+@pytest.mark.parametrize("k", [25, 33])
+@pytest.mark.parametrize("buffers", ["bufs1", "bufs2"])
+def test_partitioned_buffers_identical(k, buffers):
+    """Every partition of each buffer set holds the same rows (order keys'
+    lanes, and pass 1's payloads) as the JAX package's."""
+    j, t = runs(k)
+    assert len(t[buffers]) == len(j[buffers]) == PARTS
+    for p, (a, w) in enumerate(zip(t[buffers], j[buffers])):
+        assert np.array_equal(a, w), (buffers, p)
+    assert sum(len(a) for a in t[buffers]) > 0
