@@ -17,7 +17,7 @@ Phases, each of which ends the run with a nonzero exit on failure:
    against the plain PyTorch build on the card, at a small shape, at the
    main run's shape (k = 32, 2^30 bits), at that shape with k = 64 and
    k = 128 (four and eight lanes) and with 2^32, 2^33 and 2^35 bits (the
-   wide positions), at the chromosome run's per-slice shape (4096 x 4072
+   wide hash), at the chromosome run's per-slice shape (4096 x 4072
    rows, k = 25, 2^33 bits, phase 12), and at filters from 2^5 to 2^35
    bits; after phase 5, at the shapes one rank of phases 13-15 gives it:
    the node shard of sharded stage 1 (a quarter of the main reads' owned
@@ -164,7 +164,7 @@ MULTIK_FILTER_BITS = 1 << 33
 BLOCKED_LOG2_BITS = (30, 33)
 BLOOM_CHECK_LOG2_BITS = (5, 10, 19, 20, 31, 32, 35)
 # (k, log2_bits) of bloom_set_bits at the main shape: the main run's,
-# then more lanes, then the wide positions, then the multi-k run's last.
+# then more lanes, then the wide hash, then the multi-k run's last.
 BLOOM_MAIN_SHAPES = ((32, 30), (64, 30), (128, 30), (32, 32), (32, 33),
                      (32, 35), (128, 33))
 OA_KS = (SHORT_K, MAIN_K, 64)
@@ -569,7 +569,7 @@ def parity_slices(reads) -> int:
 def multik_parity_run():
     """The parity run's reads through multi-k (k = 32, then 64) with tips
     clipped and bubbles popped, Bloom membership in a 2^32-bit filter (the
-    wide positions), on the card and on the CPU; the GFA line lists must be
+    wide hash), on the card and on the CPU; the GFA line lists must be
     identical and the card must launch ``bloom_set_bits`` once a round."""
     from platanus3_tpu_torch.config import AssemblyConfig
     from platanus3_tpu_torch.graph.multik import assemble_multik

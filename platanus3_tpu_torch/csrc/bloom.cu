@@ -2,12 +2,15 @@
 //
 // bloom_set_bits replaces platanus3_tpu/ops/bloom_pallas.py::_set_bits_kernel
 // (driven by build_packed_bloom).  It computes the same packed words as
-// platanus3_tpu/ops/bloom.py::bloom_add, at any k and up to 2^35 bits: for
-// each masked-in k-mer and each n < num_hashes, bit (p & 31) of word
-// (p >> 5) is set, where p = (h1 + n*h2) mod 2^log2_bits below 2^32 bits
-// and p = hi << 32 | (h1 + n*h2) mod 2^32 with hi = (h3 + n*h4) mod
-// 2^(log2_bits - 32) from there on; h1..h4 are the murmur hashes of
-// hash.cuh over all the row's lanes, in native uint32 arithmetic.
+// platanus3_tpu/ops/bloom.py::bloom_add below 2^32 bits, at any k and up to
+// 2^35 bits: for each masked-in k-mer and each n < num_hashes, bit (p & 31)
+// of word (p >> 5) is set, where p = (start + n*step) mod 2^log2_bits.  In
+// a narrow filter (start, step) = (h1, h2 | 1), the murmur hashes of
+// hash.cuh over all the row's lanes, in native uint32 arithmetic.  In a
+// wide one (the wrapper's flag, from 2^32 bits on) they are the two
+// 64-bit hashes of hash64_row (hashing.wide_probe_pair), where the JAX
+// package uses hi << 32 | (h1 + n*h2) mod 2^32 with a second murmur pair
+// for hi: that pair gives some k-mers a twin with every probe equal.
 //
 // bloom_blocked_set_bits replaces bloom_pallas.py::_blocked_kernel (driven
 // by build_blocked_bloom).  The top log2_blocks bits of h1 pick one
@@ -62,6 +65,7 @@
 // (platanus3_tpu_torch/kernels.py), bound with ctypes.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "hash.cuh"
@@ -127,25 +131,23 @@ struct PackedRows {
 };
 
 // BloomRows: any lane count, any size.  items() hashes the row from its
-// lanes.  Without kWide (below 2^32 bits) a probe is as in PackedRows.
-// With kWide it is the wide position of hashing.probe_positions_wide,
-// hi << 32 | lo with lo = h1 + n*h2 and hi = (h3 + n*h4) mod
-// 2^(log2_bits - 32): the region is at most 16 bits (2^35 bits in regions
-// of 2^19) and the offset inside a top bucket at most 27, so both stay
-// uint32.  Narrow and wide are two instantiations, so that the narrow one
-// carries and hashes two seeds only.
+// lanes.  Without kWide (a narrow filter) a probe is as in PackedRows.
+// With kWide the two hashes are 64-bit (hash64_row of the two seeds) and
+// a probe is (start + n*step) mod 2^log2_bits in uint64: the region is at
+// most 16 bits (2^35 bits in regions of 2^19) and the offset inside a top
+// bucket at most 27, so both stay uint32.  Narrow and wide are two
+// instantiations, so that the narrow one computes in uint32.
 template <bool kWide>
 struct BloomRows {
-  static constexpr int kHashes = kWide ? 4 : 2;
   using Item = uint32_t;
+  using Hash = std::conditional_t<kWide, unsigned long long, uint32_t>;
   const int64_t* kmers;
   const uint8_t* mask;
   int64_t rows;
   int lanes;
-  uint32_t init[kHashes];
+  Hash seed[2];
   int num_hashes;
-  // Narrow: 2^log2_bits - 1.  Wide: 2^(log2_bits - 32) - 1, the hi mask.
-  uint32_t pos_mask;
+  Hash pos_mask;   // 2^log2_bits - 1
   int region_bits_log2;
   uint32_t top_offset_mask;
 
@@ -163,21 +165,17 @@ struct BloomRows {
   __device__ __forceinline__ void items(int64_t i, const Row& row,
                                         F&& f) const {
     if (row.flag == 0) return;
-    uint32_t h[kHashes];
-    p3::hash_row_n<kHashes>(kmers + i * lanes, lanes, init, h);
-    const uint32_t h2 = h[1] | 1u;
+    Hash h[2];
+    if constexpr (kWide) {
+      p3::hash64_row<2>(kmers + i * lanes, lanes, seed, h);
+    } else {
+      p3::hash_row_n<2>(kmers + i * lanes, lanes, seed, h);
+    }
+    const Hash step = h[1] | 1u;
     for (int n = 0; n < num_hashes; ++n) {
-      const uint32_t lo = h[0] + static_cast<uint32_t>(n) * h2;
-      if constexpr (!kWide) {
-        const uint32_t p = lo & pos_mask;
-        f(p >> region_bits_log2, p & top_offset_mask);
-      } else {
-        const uint32_t hi =
-            (h[2] + static_cast<uint32_t>(n) * h[3]) & pos_mask;
-        const unsigned long long p =
-            (static_cast<unsigned long long>(hi) << 32) | lo;
-        f(static_cast<uint32_t>(p >> region_bits_log2), lo & top_offset_mask);
-      }
+      const Hash p = (h[0] + static_cast<Hash>(n) * step) & pos_mask;
+      f(static_cast<uint32_t>(p >> region_bits_log2),
+        static_cast<uint32_t>(p) & top_offset_mask);
     }
   }
 };
@@ -193,31 +191,35 @@ struct BloomRefine {
   }
 };
 
-// Calls launch(rows) with the rows policy that fits `lanes` and
-// `log2_bits`, and returns its result.
+// Calls launch(rows) with the rows policy that fits `lanes`, `log2_bits`
+// and `wide`, and returns its result.
 template <class Launch>
 int with_bloom_rows(const void* kmers, const void* mask, long long rows,
                     int lanes, const unsigned int* init, int num_hashes,
-                    int log2_bits, int region_bits_log2, int sub_log2,
-                    Launch&& launch) {
+                    int log2_bits, int wide, int region_bits_log2,
+                    int sub_log2, Launch&& launch) {
   const auto* k = static_cast<const int64_t*>(kmers);
   const auto* m = static_cast<const uint8_t*>(mask);
   const uint32_t top_offset_mask = (1u << (region_bits_log2 + sub_log2)) - 1u;
-  if (log2_bits < 32 && lanes <= 2) {
-    return launch(PackedRows{
-        k, m, rows, lanes, init[0], init[1], num_hashes,
-        static_cast<uint32_t>((1ull << log2_bits) - 1u), region_bits_log2,
+  if (wide) {
+    // hashing.wide_seeds: hash_init of SEED_H1 and SEED_H3, then of
+    // SEED_H2 and SEED_H4, high half first.
+    return launch(BloomRows<true>{
+        k, m, rows, lanes,
+        {(static_cast<unsigned long long>(init[0]) << 32) | init[2],
+         (static_cast<unsigned long long>(init[1]) << 32) | init[3]},
+        num_hashes, (1ull << log2_bits) - 1ull, region_bits_log2,
         top_offset_mask});
   }
-  if (log2_bits < 32) {
-    return launch(BloomRows<false>{
-        k, m, rows, lanes, {init[0], init[1]}, num_hashes,
-        static_cast<uint32_t>((1ull << log2_bits) - 1u), region_bits_log2,
-        top_offset_mask});
+  if (log2_bits > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const auto pos_mask = static_cast<uint32_t>((1ull << log2_bits) - 1u);
+  if (lanes <= 2) {
+    return launch(PackedRows{k, m, rows, lanes, init[0], init[1], num_hashes,
+                             pos_mask, region_bits_log2, top_offset_mask});
   }
-  return launch(BloomRows<true>{
-      k, m, rows, lanes, {init[0], init[1], init[2], init[3]}, num_hashes,
-      (1u << (log2_bits - 32)) - 1u, region_bits_log2, top_offset_mask});
+  return launch(BloomRows<false>{k, m, rows, lanes, {init[0], init[1]},
+                                 num_hashes, pos_mask, region_bits_log2,
+                                 top_offset_mask});
 }
 
 // Region OR: one CTA per region ORs the region's probes onto its words.
@@ -346,10 +348,12 @@ __global__ void __launch_bounds__(kRegionThreads)
 // own call so that the wrapper can scan the counts in between; each
 // returns cudaGetLastError() of its launch (0 = ok).  `mask` may be null
 // (every row is inserted).  `init1`..`init4` start the four hashes
-// (hashing.hash_init of SEED_H1..SEED_H4; the last two only matter from
-// 2^32 bits on).  Region r holds positions [r, r + 1) << region_bits_log2,
-// and there are 2^(top_log2 + sub_log2) regions (partition.cuh).  `ctas`
-// must be the same in the count and the scatter.
+// (hashing.hash_init of SEED_H1..SEED_H4; the last two only matter in a
+// wide filter).  `wide` (nonzero from bloom.WIDE_LOG2_BITS bits on, and
+// required above 2^32 bits) takes the probes from the 64-bit hashes.
+// Region r holds positions [r, r + 1) << region_bits_log2, and there are
+// 2^(top_log2 + sub_log2) regions (partition.cuh).  `ctas` must be the
+// same in the count and the scatter.
 //
 // Count: `hist` ([ctas, 2^top_log2] uint32) gets every CTA's probes per
 // top bucket.
@@ -358,12 +362,12 @@ extern "C" int bloom_partition_count(const void* kmers, const void* mask,
                                      unsigned int init1, unsigned int init2,
                                      unsigned int init3, unsigned int init4,
                                      int num_hashes, int log2_bits,
-                                     int region_bits_log2, int top_log2,
-                                     int sub_log2, int ctas, void* hist,
-                                     void* stream) {
+                                     int wide, int region_bits_log2,
+                                     int top_log2, int sub_log2, int ctas,
+                                     void* hist, void* stream) {
   const unsigned int init[4] = {init1, init2, init3, init4};
   return with_bloom_rows(
-      kmers, mask, rows, lanes, init, num_hashes, log2_bits,
+      kmers, mask, rows, lanes, init, num_hashes, log2_bits, wide,
       region_bits_log2, sub_log2, [&](const auto& in) {
         return p3::launch_partition_count(in, top_log2, sub_log2, ctas, hist,
                                           static_cast<cudaStream_t>(stream));
@@ -378,13 +382,13 @@ extern "C" int bloom_partition_scatter(const void* kmers, const void* mask,
                                        unsigned int init1, unsigned int init2,
                                        unsigned int init3, unsigned int init4,
                                        int num_hashes, int log2_bits,
-                                       int region_bits_log2, int top_log2,
-                                       int sub_log2, int ctas,
+                                       int wide, int region_bits_log2,
+                                       int top_log2, int sub_log2, int ctas,
                                        const void* offsets, void* part,
                                        void* stream) {
   const unsigned int init[4] = {init1, init2, init3, init4};
   return with_bloom_rows(
-      kmers, mask, rows, lanes, init, num_hashes, log2_bits,
+      kmers, mask, rows, lanes, init, num_hashes, log2_bits, wide,
       region_bits_log2, sub_log2, [&](const auto& in) {
         return p3::launch_partition_scatter(
             in, top_log2, sub_log2, ctas, offsets, part,

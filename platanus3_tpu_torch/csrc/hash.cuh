@@ -93,4 +93,41 @@ __device__ __forceinline__ void double_hash_row(const int64_t* row, int lanes,
   *h2 = hash_row(row, lanes, init2) | 1u;
 }
 
+// murmur3's 64-bit finaliser (a bijection of uint64).
+__device__ __forceinline__ unsigned long long fmix64(unsigned long long h) {
+  h ^= h >> 33;
+  h *= 0xFF51AFD7ED558CCDull;
+  h ^= h >> 33;
+  h *= 0xC4CEB9FE1A85EC53ull;
+  h ^= h >> 33;
+  return h;
+}
+
+// hashing.hash64_kmers under the N seeds seed[0..N): the row's lanes
+// packed into 64-bit words as count.pack_keys packs them (an odd lane
+// count puts lane 0 alone in the first word), each folded in as
+// h = fmix64(h ^ word).
+template <int N>
+__device__ __forceinline__ void hash64_row(const int64_t* row, int lanes,
+                                           const unsigned long long* seed,
+                                           unsigned long long* h) {
+#pragma unroll
+  for (int s = 0; s < N; ++s) h[s] = seed[s];
+  int j = 0;
+  if (lanes & 1) {
+    const unsigned long long w = static_cast<uint32_t>(row[0]);
+#pragma unroll
+    for (int s = 0; s < N; ++s) h[s] = fmix64(h[s] ^ w);
+    j = 1;
+  }
+  for (; j < lanes; j += 2) {
+    const unsigned long long w =
+        (static_cast<unsigned long long>(static_cast<uint32_t>(row[j]))
+         << 32) |
+        static_cast<uint32_t>(row[j + 1]);
+#pragma unroll
+    for (int s = 0; s < N; ++s) h[s] = fmix64(h[s] ^ w);
+  }
+}
+
 }  // namespace p3

@@ -27,8 +27,9 @@ import torch
 from platanus3_tpu_torch.ops import bloom as bloom_mod
 from platanus3_tpu_torch.ops import count as count_mod
 from platanus3_tpu_torch.ops import kmer as kmer_mod
+from platanus3_tpu_torch.utils.profiling import timed_part
 
-__all__ = ["DBG", "build_graph", "phantom_neighbors"]
+__all__ = ["DBG", "build_graph", "phantom_neighbors", "false_neighbours"]
 
 
 class DBG(NamedTuple):
@@ -89,12 +90,14 @@ def _neighbor_canon(nodes: torch.Tensor, k: int):
             yield kmer_mod.canonical(shift_fn(nodes, b, k), k)
 
 
-def _neighbor_info(nodes, size, k, bf, use_exact):
+def _neighbor_info(nodes, size, k, bf, use_exact, timer=None):
     """Membership / id / orientation of all 8 neighbours of every node.
 
     One (side, base) column at a time, which bounds the transient memory
     at a few ``[M, L]`` tensors (the JAX package does the same above
-    2^22 nodes; the answers do not depend on the grouping)."""
+    2^22 nodes; the answers do not depend on the grouping).  In Bloom
+    membership each column's query is timed as part ``graph.bloom_query``
+    of ``timer``'s span (summed over the columns)."""
     m = nodes.shape[0]
     table = count_mod.KmerTable(nodes, torch.zeros_like(nodes[:, 0]), size)
     nid_cols, isfw_cols, pres_cols = [], [], []
@@ -102,8 +105,11 @@ def _neighbor_info(nodes, size, k, bf, use_exact):
         nid_b = count_mod.lookup_id_join(table, canon, k=k)
         nid_cols.append(nid_b)
         isfw_cols.append(u_isfw)
-        pres_cols.append(nid_b >= 0 if use_exact
-                         else bloom_mod.bloom_query(bf, canon, k))
+        if use_exact:
+            pres_cols.append(nid_b >= 0)
+        else:
+            with timed_part(timer, "graph.bloom_query"):
+                pres_cols.append(bloom_mod.bloom_query(bf, canon, k))
     row_valid = torch.arange(m, device=nodes.device) < size
     nid = torch.stack(nid_cols, dim=1)
     all_isfw = torch.stack(isfw_cols, dim=1)
@@ -126,6 +132,15 @@ def phantom_neighbors(dbg: DBG, k: int):
     pres = torch.cat([dbg.left_present, dbg.right_present], dim=1)
     nid = torch.cat([dbg.left_id, dbg.right_id], dim=1)
     return all_canon, (pres & (nid < 0)).reshape(m * 8)
+
+
+def false_neighbours(dbg: DBG) -> torch.Tensor:
+    """How many rows :func:`phantom_neighbors` masks in (0-dim int64): the
+    present neighbour columns whose k-mer is not in the node table.  In
+    Bloom membership they are the filter's false positives among the
+    nodes' neighbours."""
+    return sum(((p & (i < 0)).sum() for p, i in (
+        (dbg.left_present, dbg.left_id), (dbg.right_present, dbg.right_id))))
 
 
 def _successor_states(nodes, size, lp, lid, lfw, rp, rid, rfw, *, k):
@@ -257,11 +272,13 @@ def _finalize_chains(nxt_orig, chain_state, chain_node, is_junction,
 
 
 def build_graph(nodes: torch.Tensor, size, k: int,
-                bf: bloom_mod.BloomFilter, use_exact: bool = False) -> DBG:
+                bf: bloom_mod.BloomFilter, use_exact: bool = False,
+                timer=None) -> DBG:
     """Construct the decomposition from a sorted canonical node table.
 
     ``nodes``: ``[M, L]`` sorted unique canonical k-mers (0xFFFFFFFF
-    padding past ``size``); ``bf`` is queried when ``use_exact`` is False.
+    padding past ``size``); ``bf`` is queried when ``use_exact`` is False,
+    the queries timed as part ``graph.bloom_query`` of ``timer``'s span.
     """
     m = nodes.shape[0]
     dev = nodes.device
@@ -269,7 +286,7 @@ def build_graph(nodes: torch.Tensor, size, k: int,
     rounds = max(1, int(2 * m).bit_length())
 
     lp, lid, lfw, rp, rid, rfw = _neighbor_info(nodes, size, k, bf,
-                                                use_exact)
+                                                use_exact, timer)
     (is_junction, chain_node, chain_state, nxt, state_next_id,
      state_next_o) = _successor_states(nodes, size, lp, lid, lfw, rp, rid,
                                        rfw, k=k)

@@ -119,9 +119,9 @@ def load_library():
                     ctypes.c_longlong)
     for name, args in (
             ("bloom_partition_count", [vp, vp, ll, i, u, u, u, u, i, i, i,
-                                       i, i, i, vp, vp]),
+                                       i, i, i, i, vp, vp]),
             ("bloom_partition_scatter", [vp, vp, ll, i, u, u, u, u, i, i, i,
-                                         i, i, i, vp, vp, vp]),
+                                         i, i, i, i, vp, vp, vp]),
             ("bloom_partition_refine", [vp, vp, i, i, i, vp, vp, vp]),
             ("bloom_region_or", [vp, vp, i, i, vp, vp, vp]),
             ("bloom_blocked_partition_count", [vp, vp, ll, i, u, u, i, i, i,

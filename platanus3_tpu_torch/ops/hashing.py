@@ -9,6 +9,22 @@ depend on every bit of these values.
 
 The CUDA kernels compute the same hash in native ``uint32`` arithmetic
 (``csrc/hash.cuh``); ``hash_init`` gives them the per-seed start value.
+
+Filters of 2^32 bits and more take their probes from a 64-bit hash
+instead (``wide_probe_pair``), where the port departs from the JAX
+package.  Murmur seeded only through its start value is a poor pair of
+hashes: after the first lane the two seeds' states differ by a function
+of that lane alone, and the later lanes are XORed into both alike.  At
+k = 25 (a first lane of 18 bits) that difference takes 244,579 values
+over the 2^18 first lanes, so 21,030 pairs of first lanes share it where
+8 would by chance, and every k-mer with such a first lane has a twin, a
+k-mer with the other first lane and the same ``(h1, h2)``: the same
+probes below 2^32 bits, and at 2^33 bits the same JAX wide probes with
+chance 1/4 (their high bit follows the parities of two more murmurs).
+The wide hash folds the lanes, two to a 64-bit word, into
+``fmix64`` (murmur3's 64-bit finaliser, a bijection): at k <= 32 a key
+is one word, so two k-mers never share a hash, and their probe pairs
+agree only by chance.
 """
 
 from __future__ import annotations
@@ -18,9 +34,9 @@ import torch
 from platanus3_tpu_torch.constants import num_lanes
 from platanus3_tpu_torch.ops.kmer import MASK32
 
-__all__ = ["hash_kmers", "double_hash", "probe_positions",
-           "probe_positions_wide", "hash_init", "SEED_H1", "SEED_H2",
-           "SEED_H3", "SEED_H4"]
+__all__ = ["hash_kmers", "double_hash", "probe_positions", "hash_init",
+           "hash64_kmers", "fmix64", "wide_seeds", "wide_probe_pair",
+           "SEED_H1", "SEED_H2", "SEED_H3", "SEED_H4"]
 
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
@@ -29,9 +45,14 @@ _MIX2 = 0xC2B2AE35
 
 SEED_H1 = 0x8C5FB1F7
 SEED_H2 = 0x27D4EB2F
-# The second double-hash pair of the wide (>= 2^32-bit) Bloom positions.
+# With SEED_H1 and SEED_H2, the halves of the wide hash's 64-bit seeds.
 SEED_H3 = 0x94D049BB
 SEED_H4 = 0xBF58476D
+
+# murmur3's fmix64 multipliers, as the int64 holding their bit pattern.
+_F64_1 = 0xFF51AFD7ED558CCD - (1 << 64)
+_F64_2 = 0xC4CEB9FE1A85EC53 - (1 << 64)
+_LOW31 = (1 << 31) - 1
 
 
 def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -82,20 +103,53 @@ def probe_positions(h1: torch.Tensor, h2: torch.Tensor, num_hashes: int,
     return (h1[None] + n * h2[None]) & ((1 << log2_bits) - 1)
 
 
-def probe_positions_wide(kmers: torch.Tensor, k: int, num_hashes: int,
-                         log2_bits: int, lo_bits: int = 32):
-    """Probe positions of a filter of ``2^log2_bits >= 2^lo_bits`` bits as
-    ``(hi, lo)``, each ``[num_hashes, ...]``; the position is
-    ``hi * 2^lo_bits + lo``.  ``lo`` follows the double hash of
-    :func:`probe_positions`, ``hi`` a second pair seeded with ``SEED_H3``
-    and ``SEED_H4``.  ``lo_bits`` is 32 in production; tests shrink it to
-    drive the path on a small filter."""
-    assert log2_bits >= lo_bits
-    h1, h2 = double_hash(kmers, k)
-    h3 = hash_kmers(kmers, k, seed=SEED_H3)
-    h4 = hash_kmers(kmers, k, seed=SEED_H4)
-    n = torch.arange(num_hashes, dtype=torch.int64, device=h1.device)
-    n = n.reshape((num_hashes,) + (1,) * h1.dim())
-    lo = (h1[None] + n * h2[None]) & ((1 << lo_bits) - 1)
-    hi = (h3[None] + n * h4[None]) & ((1 << (log2_bits - lo_bits)) - 1)
-    return hi, lo
+def fmix64(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 64-bit finaliser on int64 tensors holding ``uint64`` bit
+    patterns (products wrap modulo 2^64; ``>> 33`` is made logical by its
+    mask)."""
+    h = h ^ ((h >> 33) & _LOW31)
+    h = h * _F64_1
+    h = h ^ ((h >> 33) & _LOW31)
+    h = h * _F64_2
+    return h ^ ((h >> 33) & _LOW31)
+
+
+def _signed64(v: int) -> int:
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def wide_seeds(k: int) -> tuple[int, int]:
+    """The two 64-bit seeds of the wide hash, as int64 values:
+    ``hash_init`` of SEED_H1 and SEED_H3, then of SEED_H2 and SEED_H4,
+    high half first."""
+    return tuple(_signed64((hash_init(k, a) << 32) | hash_init(k, b))
+                 for a, b in ((SEED_H1, SEED_H3), (SEED_H2, SEED_H4)))
+
+
+def hash64_kmers(kmers: torch.Tensor, k: int, seed: int) -> torch.Tensor:
+    """64-bit hash ``[...]`` (int64 bit patterns) of ``[..., L]`` lanes:
+    the lanes packed into 64-bit words as ``count.pack_keys`` packs them
+    (an odd L puts lane 0 alone in the first word), each folded in as
+    ``h = fmix64(h ^ word)`` from ``h = seed``."""
+    l = num_lanes(k)
+    assert kmers.shape[-1] == l
+    h = torch.full(kmers.shape[:-1], seed, dtype=torch.int64,
+                   device=kmers.device)
+    first = l % 2
+    if first:
+        h = fmix64(h ^ kmers[..., 0])
+    for j in range(first, l, 2):
+        h = fmix64(h ^ ((kmers[..., j] << 32) | kmers[..., j + 1]))
+    return h
+
+
+def wide_probe_pair(kmers: torch.Tensor, k: int, log2_bits: int):
+    """``(start, step)`` of the probes of a ``2^log2_bits``-bit filter from
+    the wide hash: probe ``n`` is ``(start + n*step) mod 2^log2_bits``
+    (:func:`probe_positions`), both reduced modulo ``2^log2_bits``, the
+    step odd."""
+    s1, s2 = wide_seeds(k)
+    mask = (1 << log2_bits) - 1
+    return (hash64_kmers(kmers, k, s1) & mask,
+            (hash64_kmers(kmers, k, s2) | 1) & mask)
+

@@ -50,6 +50,7 @@ from platanus3_tpu_torch.ops import bloom as bloom_mod
 from platanus3_tpu_torch.ops import count as count_mod
 from platanus3_tpu_torch.ops import kmer as kmer_mod
 from platanus3_tpu_torch.ops import slice_kmers as sk
+from platanus3_tpu_torch.utils.profiling import timed_part
 
 __all__ = ["NUM_PARTS", "plan_caps", "histogram_short_slice",
            "histogram_solid_slice", "collect_short_slice",
@@ -190,9 +191,10 @@ def count_partition(counts, bufs, fills, pidx: int, pbase: int):
 def solid_collect_slice(bufs, fills, ovf, min_pos, seed_fw, bf, counts,
                         packed, vlen, rid, start, rlen, posbase_s, *, k,
                         short_k, cov_threshold, num_reads, parts, s_blks,
-                        caps, bases, add_bloom):
+                        caps, bases, add_bloom, timer=None):
     """Pass-2 collect: window-min solidity from the counts, the Bloom
-    insert (``add_bloom``; one ``bloom_set_bits`` launch on the card), the
+    insert (``add_bloom``; one ``bloom_set_bits`` launch on the card,
+    timed as part ``pass2.bloom_insert`` of ``timer``'s span), the
     per-read first-solid seed reduction, and the append of the solid
     owned canonical k-mers to the node buffers.  Returns ``(bufs, fills,
     ovf, min_pos, seed_fw, bf)``.
@@ -209,8 +211,9 @@ def solid_collect_slice(bufs, fills, ovf, min_pos, seed_fw, bf, counts,
     lk = chunk_fw.shape[1]
     dev = okey.device
     if add_bloom:
-        bf = bloom_mod.bloom_add(bf, count_mod.key_lanes(okey, lk), k,
-                                 mask=part < parts)
+        with timed_part(timer, "pass2.bloom_insert"):
+            bf = bloom_mod.bloom_add(bf, count_mod.key_lanes(okey, lk), k,
+                                     mask=part < parts)
 
     batch_min = torch.full((num_reads,), NO_SEED, dtype=torch.int64,
                            device=dev)

@@ -81,8 +81,11 @@ class AssemblyResult:
 
 
 # Version of the checkpointed layouts (int64 lanes and ids, int32 Bloom
-# words, DBG leaves by field name); part of every checkpoint digest.
-CHECKPOINT_FORMAT = "torch-fmt=1"
+# words, DBG leaves by field name) and of the probes that set a filter's
+# bits; part of every checkpoint digest.  2: filters of
+# ``bloom.WIDE_LOG2_BITS`` bits and more probe through the 64-bit wide
+# hash, so the words a format-1 checkpoint holds answer no query now.
+CHECKPOINT_FORMAT = "torch-fmt=2"
 
 
 def check_device(device, what: str) -> torch.device:
@@ -199,8 +202,24 @@ def _bloom_from_nodes(nodes, size, bf, *, k):
     return bloom_mod.bloom_add(bf, nodes, k, mask=mask)
 
 
-def run_stage2(nodes, size, bf, *, k, use_exact):
-    return build_mod.build_graph(nodes, size, k, bf, use_exact=use_exact)
+def run_stage2(nodes, size, bf, *, k, use_exact, timer=None):
+    return build_mod.build_graph(nodes, size, k, bf, use_exact=use_exact,
+                                 timer=timer)
+
+
+def note_bloom(timer, dbg, bf) -> None:
+    """The Bloom filter's counters, under ``--profile-stages`` only
+    (``StageTimer.note``): ``bloom_false_neighbours``, the Bloom-positive
+    neighbours of the graph stage 2 first builds from the solid nodes
+    that are no node (``build.false_neighbours``), and ``bloom_bits_set``,
+    the complete filter's set bits.  An ideal filter of ``m`` bits and
+    ``h`` probes holding ``n`` nodes reads 0 and about ``m * (1 - exp(-h
+    * n / m))``.  The false neighbours are summed on the device here, the
+    set bits at the end of the run; the host reads both then."""
+    if timer.profile:
+        false = build_mod.false_neighbours(dbg)
+        timer.note("bloom_false_neighbours", lambda: false)
+        timer.note("bloom_bits_set", lambda: bloom_mod.popcount(bf))
 
 
 def _stage3(dbg, packed, valid_len, start, read_len, prev_base, next_base,
@@ -251,7 +270,7 @@ def pad_table_keys(keys, size: int, cap: int):
     return torch.cat([keys, pad], dim=0)
 
 
-def _expand_bloom_closure(dbg, nodes, size, bf, config, log):
+def _expand_bloom_closure(dbg, nodes, size, bf, config, log, timer):
     """Bloom-membership closure: add filter-positive neighbour k-mers as
     nodes until fixpoint (or ``bloom_expand_rounds``), rebuilding the
     graph each round -- false positives become coverage-0 nodes as in the
@@ -275,7 +294,8 @@ def _expand_bloom_closure(dbg, nodes, size, bf, config, log):
         nodes = pad_table_keys(merged.keys, n_new, graph_cap(n_new))
         size = torch.tensor(n_new, dtype=torch.int64, device=nodes.device)
         del merged, dbg
-        dbg = run_stage2(nodes, size, bf, k=config.k, use_exact=False)
+        dbg = run_stage2(nodes, size, bf, k=config.k, use_exact=False,
+                         timer=timer)
         log.write(f"bloom closure round {rnd + 1}: {n_extra} phantom "
                   f"neighbor k-mers -> {n_new} nodes")
     return dbg, nodes, size, grown
@@ -381,7 +401,9 @@ def assemble(source, config: AssemblyConfig,
     each span.  ``config.profile_stages`` synchronises the device at span
     boundaries so the spans are exact; on a CUDA device it also puts each
     stage's peak allocation in ``stats['peak_bytes']`` and counts the
-    host's waits for the device (counter ``host_syncs``).
+    host's waits for the device (counter ``host_syncs``); in Bloom
+    membership it adds the counters of ``note_bloom`` and the part
+    ``graph.bloom_query`` of stage 2.
     """
     if mesh is not None:
         device = mesh.device
@@ -571,10 +593,12 @@ def _assemble_body(source, config, log, write_output, extra_solid, device,
         log.write("stage2 restored from checkpoint")
     else:
         dbg = run_stage2(nodes, size, bf, k=config.k,
-                         use_exact=config.use_exact_membership)
+                         use_exact=config.use_exact_membership, timer=timer)
+        if not config.use_exact_membership:
+            note_bloom(timer, dbg, bf)
         if not config.use_exact_membership and config.bloom_expand_rounds:
             dbg, nodes, size, closure_rounds = _expand_bloom_closure(
-                dbg, nodes, size, bf, config, log)
+                dbg, nodes, size, bf, config, log, timer)
             if closure_rounds:
                 # Node rows shifted; stage 3 looks the positions up again.
                 nid = None

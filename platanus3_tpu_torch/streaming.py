@@ -73,7 +73,7 @@ from platanus3_tpu_torch.ops import solid as solid_mod
 from platanus3_tpu_torch.ops.windowmin import window_min
 from platanus3_tpu_torch.parallel import sharded
 from platanus3_tpu_torch.utils.logging import PipelineLog
-from platanus3_tpu_torch.utils.profiling import device_trace
+from platanus3_tpu_torch.utils.profiling import device_trace, timed_part
 
 __all__ = ["assemble_streaming"]
 
@@ -113,7 +113,9 @@ def assemble_streaming(source, config: AssemblyConfig,
     ``pass2_table``, ``graph``, ``coverage``, ``simplify``,
     ``reach_chars``, ``emit`` (with its parts ``emit.pack``,
     ``emit.to_host``, ``emit.text`` and ``emit.write``) and ``finish``, as
-    in ``pipeline.assemble``.
+    in ``pipeline.assemble``; in Bloom membership ``pass2_collect`` has the
+    part ``pass2.bloom_insert`` and ``graph`` the part
+    ``graph.bloom_query``.
 
     ``mesh``: this rank's ``parallel.sharded.Mesh``; every rank calls with
     the same arguments and runs on its mesh device.  ``slice_chunks`` is
@@ -270,8 +272,10 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
     del table
     size = torch.tensor(num_nodes, dtype=torch.int64, device=device)
     dbg = pipe.run_stage2(nodes, size, bf, k=k,
-                          use_exact=config.use_exact_membership)
+                          use_exact=config.use_exact_membership, timer=timer)
     del nodes
+    if not config.use_exact_membership:
+        pipe.note_bloom(timer, dbg, bf)
     timer.begin("coverage")
     log.write("[streaming] graph built")
 
@@ -411,7 +415,7 @@ def _passes(batch, config, bf, need_bloom, short_cap, node_cap,
             bufs, fills, ovf, min_pos, seed_fw, bf, counts, packed, vlen,
             rid, start, rlen, lo * p_short, num_reads=batch.num_reads,
             parts=parts, s_blks=s_blks, caps=caps, bases=bases,
-            add_bloom=need_bloom, **solid_kw)
+            add_bloom=need_bloom, timer=timer, **solid_kw)
     if bool(ovf):
         raise RuntimeError("streaming pass-2 partition-buffer overflow -- "
                            "impossible with histogram-planned capacities; "
@@ -527,7 +531,7 @@ def _mesh_passes(mesh, batch, config, bf, need_bloom, short_cap, node_cap,
             start, rlen, k=k, short_k=short_k,
             cov_threshold=config.cov_threshold, cap_s=cap_s, cap_k=cap_k,
             shard_cap=nscap, num_reads=batch.num_reads,
-            add_bloom=need_bloom)
+            add_bloom=need_bloom, timer=timer)
         over += o
     del stbl
     ovf = overflow_total(over)
@@ -578,12 +582,13 @@ def _mesh_count_slice(mesh, stbl, packed, vlen, start, rlen, *, k, short_k,
 
 def _mesh_solid_slice(mesh, stbl, ntbl, bf, min_pos, seed_fw, packed, vlen,
                       rid, start, rlen, *, k, short_k, cov_threshold, cap_s,
-                      cap_k, shard_cap, num_reads, add_bloom):
+                      cap_k, shard_cap, num_reads, add_bloom, timer=None):
     """Pass 2 on this rank's block of a slice: the short counts of every
     valid position looked up at their owners and routed back, window-min
     solidity, the solid owned k-mers routed to their owners and merged
     into the node shards, the local Bloom insert (one ``bloom_set_bits``
-    launch on the card) and the seed update.  Returns ``(node shard, bf,
+    launch on the card, part ``pass2.bloom_insert`` of ``timer``'s span)
+    and the seed update.  Returns ``(node shard, bf,
     min_pos, seed_fw, overflow)``.
 
     Seeds, as in the JAX package: a slice's first solid owned position of
@@ -622,8 +627,9 @@ def _mesh_solid_slice(mesh, stbl, ntbl, bf, min_pos, seed_fw, packed, vlen,
             + (ntbl.size - shard_cap).clamp(min=0))
     del got
     if add_bloom:
-        bf = bloom_mod.bloom_add(bf, canon_k.reshape(-1, lk), k,
-                                 mask=solid_owned.reshape(-1))
+        with timed_part(timer, "pass2.bloom_insert"):
+            bf = bloom_mod.bloom_add(bf, canon_k.reshape(-1, lk), k,
+                                     mask=solid_owned.reshape(-1))
     del canon_k
 
     gpos = start[:, None] + torch.arange(pk, dtype=torch.int64,

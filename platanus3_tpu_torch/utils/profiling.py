@@ -16,7 +16,8 @@ clock.  ``spans`` maps each name to its seconds, summed over repeats, in
 the order the spans first opened.  ``counters`` names process-wide counts
 (a zero-argument function each, such as a kernel's launch count);
 ``span_counts`` holds each one's rise over every span and part, and
-``counts()`` its rise since the timer began.
+``counts()`` its rise since the timer began, with the values ``note``
+set.
 
 With ``profile`` on (``--profile-stages``) each span and part starts and
 ends with ``torch.cuda.synchronize()``, so it measures finished device
@@ -44,8 +45,8 @@ import warnings
 import torch
 from torch.profiler import record_function
 
-__all__ = ["StageTimer", "device_trace", "TRACE_FILE", "TRACE_WINDOW",
-           "RANGE_PREFIX", "SYNC_WARNING"]
+__all__ = ["StageTimer", "device_trace", "timed_part", "TRACE_FILE",
+           "TRACE_WINDOW", "RANGE_PREFIX", "SYNC_WARNING"]
 
 TRACE_FILE = "trace.json"
 # Name of the CPU event that spans the whole traced region.
@@ -78,6 +79,12 @@ def device_trace(trace_dir: str | None, device="cpu"):
     prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
 
 
+def timed_part(timer, name: str):
+    """``timer.part(name)``, or nothing where ``timer`` is None (code that
+    also runs outside a timed run)."""
+    return contextlib.nullcontext() if timer is None else timer.part(name)
+
+
 def _recording() -> bool:
     """Whether a ``torch.profiler`` records: a cheap check, where an
     unguarded ``record_function`` costs microseconds with none."""
@@ -92,6 +99,7 @@ class StageTimer:
         self.spans, self.span_counts = {}, {}
         self.peak_bytes, self.reserved_bytes = {}, {}
         self.host_syncs = 0
+        self.notes = {}
         self.counters = dict(counters or {})
         if self._watch:
             self.counters["host_syncs"] = lambda: self.host_syncs
@@ -151,9 +159,24 @@ class StageTimer:
             self._close(sync=ok)
 
     def counts(self) -> dict:
-        """Each counter's rise since the timer began."""
-        return {name: v - self._counts0[name]
-                for name, v in self._read().items()}
+        """Each counter's rise since the timer began, then each ``note``'s
+        value."""
+        out = {name: v - self._counts0[name]
+               for name, v in self._read().items()}
+        syncs = self.host_syncs
+        out.update({name: int(count()) for name, count in self.notes.items()})
+        self.host_syncs = syncs
+        return out
+
+    def note(self, name: str, count):
+        """With ``profile`` on, give ``counts()`` the entry ``name``:
+        ``int(count())``, read when ``counts()`` is, at the end of the run
+        (``count`` is a zero-argument function, such as a sum on the
+        device), so that its work and the host's wait for it fall in no
+        stage; they are the timer's own, as its barriers are, and left
+        out of ``host_syncs``.  With ``profile`` off, do nothing."""
+        if self.profile:
+            self.notes[name] = count
 
     def elapsed(self) -> float:
         """Seconds from the first span's start to the last close, or to

@@ -1,12 +1,16 @@
 """The port's wide Bloom path (2^32 to 2^35 bits) and its multi-lane
-inserts against the JAX package, with tolerance "exact" throughout.
+inserts, with tolerance "exact" throughout.
 
-From ``2^lo_bits`` bits on, a probe is the wide position ``hi *
-2^lo_bits + lo`` (``hashing.probe_positions_wide``).  As
-``tests/test_count_bloom.py`` does for the JAX package, ``lo_bits = 16``
-drives that path on a 2^20-bit filter; the production value is 32.  The
-CUDA kernel is held to the plain version at 2^32-2^35 bits in
-``tests/test_torch_cuda.py``, which needs the card.
+From ``2^WIDE_LOG2_BITS`` bits on, the probes of a k-mer are
+``(start + n*step) mod 2^log2_bits`` with ``start`` and ``step`` from a
+64-bit hash of the whole k-mer (``hashing.wide_probe_pair``).  There the
+port departs from the JAX package, whose wide probes come from the
+murmur pair that gives some k-mers a twin (``ops/hashing.py``), so the
+wide path is held to a plain reference written here with Python integers
+(``_plain_positions``); below 2^32 bits the port still equals the JAX
+package.  Lowering ``bloom.WIDE_LOG2_BITS`` drives the wide hash on a
+small filter.  The CUDA kernel is held to the plain version at
+2^32-2^35 bits in ``tests/test_torch_cuda.py``, which needs the card.
 """
 
 import numpy as np
@@ -15,10 +19,43 @@ import jax.numpy as jnp
 import torch
 
 from platanus3_tpu.ops import bloom as JB
-from platanus3_tpu.ops import hashing as JH
 from platanus3_tpu.ops import kmer as JK
 from platanus3_tpu_torch.ops import bloom as TB
 from platanus3_tpu_torch.ops import hashing as TH
+
+M64 = (1 << 64) - 1
+
+
+def _fmix64(h):
+    h ^= h >> 33
+    h = h * 0xFF51AFD7ED558CCD & M64
+    h ^= h >> 33
+    h = h * 0xC4CEB9FE1A85EC53 & M64
+    return h ^ (h >> 33)
+
+
+def _plain_positions(lanes, k, hashes, log2_bits):
+    """The wide probes of one k-mer's ``uint32`` lanes, from the
+    definition: lanes paired into 64-bit words (an odd count puts lane 0
+    alone first), each folded in by ``fmix64(h ^ word)`` from each seed,
+    the seeds ``hash_init`` of SEED_H1 and SEED_H3, then of SEED_H2 and
+    SEED_H4."""
+    def init(seed):
+        return (seed ^ (k * 0x9E3779B9)) & 0xFFFFFFFF
+
+    lanes = [int(x) for x in lanes]
+    words = lanes[:1] if len(lanes) % 2 else []
+    words += [lanes[j] << 32 | lanes[j + 1]
+              for j in range(len(lanes) % 2, len(lanes), 2)]
+    out = []
+    for a, b in ((TH.SEED_H1, TH.SEED_H3), (TH.SEED_H2, TH.SEED_H4)):
+        h = init(a) << 32 | init(b)
+        for w in words:
+            h = _fmix64(h ^ w)
+        out.append(h)
+    mask = (1 << log2_bits) - 1
+    start, step = out[0] & mask, (out[1] | 1) & mask
+    return [(start + n * step) & mask for n in range(hashes)]
 
 
 def _t(x):
@@ -38,44 +75,52 @@ def words_u32(bf):
     return bf.bits.numpy().view(np.uint32)
 
 
-@pytest.mark.parametrize("k,log2_bits,hashes,lo_bits", [
+@pytest.mark.parametrize("k,log2_bits,hashes,wide_from", [
     (25, 20, 6, 16), (32, 32, 10, 32), (48, 33, 10, 32), (64, 35, 4, 32),
     (101, 34, 7, 32)])
-def test_probe_positions_wide(k, log2_bits, hashes, lo_bits):
+def test_probe_positions_wide(k, log2_bits, hashes, wide_from, monkeypatch):
     canon = canon_batch(2000, k, seed=k + log2_bits)
-    jhi, jlo = JH.probe_positions_wide(jnp.asarray(canon), k, hashes,
-                                       log2_bits, lo_bits)
-    thi, tlo = TH.probe_positions_wide(_t(canon), k, hashes, log2_bits,
-                                       lo_bits)
-    assert thi.shape == tlo.shape == (hashes, 2000)
-    assert np.array_equal(thi.numpy(), np.asarray(jhi).astype(np.int64))
-    assert np.array_equal(tlo.numpy(), np.asarray(jlo).astype(np.int64))
+    want = np.array([_plain_positions(row, k, hashes, log2_bits)
+                     for row in canon], dtype=np.int64).T
+    got = TH.probe_positions(*TH.wide_probe_pair(_t(canon), k, log2_bits),
+                             hashes, log2_bits)
+    assert got.shape == (hashes, 2000)
+    assert np.array_equal(got.numpy(), want)
+    # A filter of that size takes them from WIDE_LOG2_BITS bits on.
+    monkeypatch.setattr(TB, "WIDE_LOG2_BITS", wide_from)
+    bf = TB.BloomFilter(None, log2_bits, hashes)
+    assert np.array_equal(TB._probe_bits(bf, _t(canon), k).numpy(), want)
 
 
 @pytest.mark.parametrize("k", [25, 48, 64])
-def test_wide_add_and_query_match_jax(k):
-    """The (hi, lo) path at lo_bits = 16 on a 2^20-bit filter: words equal
-    to JAX ``_bloom_add_wide``, queries to ``_bloom_query_wide``."""
+def test_wide_add_and_query_match_jax(k, monkeypatch):
+    """The wide hash on a 2^20-bit filter (WIDE_LOG2_BITS lowered to 16):
+    words equal to those a plain build sets from ``_plain_positions``,
+    queries to a plain lookup of the same bits."""
+    monkeypatch.setattr(TB, "WIDE_LOG2_BITS", 16)
     canon = canon_batch(500, k, seed=k)
     mask = np.arange(500) < 400
-    jbf = JB._bloom_add_wide(
-        JB.BloomFilter(jnp.zeros(((1 << 20) // 32,), jnp.uint32), 20, 6),
-        jnp.asarray(canon), k, jnp.asarray(mask), lo_bits=16)
+    want = np.zeros((1 << 20) // 32, dtype=np.uint32)
+    for row in canon[mask]:
+        for p in _plain_positions(row, k, 6, 20):
+            want[p >> 5] |= np.uint32(1 << (p & 31))
     tbf = TB.bloom_add_plain(TB.make_bloom(1 << 20, 6), _t(canon), k,
-                             mask=torch.from_numpy(mask), lo_bits=16)
-    assert np.array_equal(words_u32(tbf), np.asarray(jbf.bits))
+                             mask=torch.from_numpy(mask))
+    assert np.array_equal(words_u32(tbf), want)
     # Re-adding the same k-mers changes nothing.
     again = TB.bloom_add_plain(tbf, _t(canon), k,
-                               mask=torch.from_numpy(mask), lo_bits=16)
+                               mask=torch.from_numpy(mask))
     assert torch.equal(again.bits, tbf.bits)
 
     probes = np.concatenate([canon, canon_batch(2000, k, seed=k + 1)])
-    want = np.asarray(JB._bloom_query_wide(jbf, jnp.asarray(probes), k,
-                                           lo_bits=16))
-    got = TB.bloom_query(tbf, _t(probes), k, lo_bits=16).numpy()
-    assert np.array_equal(got, want)
+    expect = np.array([all(want[p >> 5] >> np.uint32(p & 31) & 1
+                           for p in _plain_positions(row, k, 6, 20))
+                       for row in probes])
+    got = TB.bloom_query(tbf, _t(probes), k).numpy()
+    assert np.array_equal(got, expect)
     assert got[:400].all()                          # no false negative
     # The narrow path on the same filter places bits elsewhere.
+    monkeypatch.setattr(TB, "WIDE_LOG2_BITS", 32)
     assert not torch.equal(
         TB.bloom_add_plain(TB.make_bloom(1 << 20, 6), _t(canon), k,
                            mask=torch.from_numpy(mask)).bits, tbf.bits)

@@ -74,6 +74,26 @@ def test_bloom_set_bits_matches_plain(cuda, k, log2_bits, hashes):
                                                      k).bits)
 
 
+@pytest.mark.parametrize("k,log2_bits", [(25, 20), (48, 24), (32, 30)])
+def test_bloom_set_bits_wide_hash_on_a_small_filter(cuda, k, log2_bits,
+                                                    monkeypatch):
+    """The wide hash below 2^32 bits (``WIDE_LOG2_BITS`` lowered): the
+    kernel's words equal the plain build's, and the card's queries the
+    CPU's, every inserted k-mer present."""
+    monkeypatch.setattr(TB, "WIDE_LOG2_BITS", 16)
+    canon = canon_batch(200_000, k, seed=k + log2_bits, device=cuda)
+    mask = torch.rand(200_000, device=cuda) < 0.9
+    bf = TB.make_bloom(1 << log2_bits, 10, device=cuda)
+    got = TB.bloom_add(bf, canon, k, mask=mask)
+    want = TB.bloom_add_plain(bf, canon, k, mask=mask)
+    assert torch.equal(got.bits, want.bits)
+    on_card = TB.bloom_query(got, canon, k)
+    assert bool(on_card[mask].all())
+    on_cpu = TB.bloom_query(got._replace(bits=got.bits.cpu()), canon.cpu(),
+                            k)
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
 @pytest.mark.parametrize("k", [21, 32, 48, 64, 128])
 def test_oa_count_insert_matches_plain(cuda, k):
     rows = 200_000

@@ -407,6 +407,15 @@ def main(argv) -> int:
         result = SCENARIOS[s](mesh)
         rank = int(os.environ["RANK"])
         (OUT_DIR / f"{s}.rank{rank}.pkl").write_bytes(pickle.dumps(result))
+    # The ranks leave the group together, before the interpreter exits: a
+    # rank whose gloo group is still open when it exits, while another is
+    # still at work or already gone, can abort on the way out (SIGABRT,
+    # "terminate called without an active exception"), which failed a
+    # launch whose results were all written.
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
     return 0
 
 
