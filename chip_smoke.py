@@ -12,7 +12,13 @@ Phases, each of which ends the run with a nonzero exit on failure:
    its plain chain on the card in each mode (both histograms,
    collect-short, collect-solid) at the chromosome run's slice shape (4096
    chunks of 4096 bases, k = 25, short_k = 21): every output array-equal,
-   times from CUDA events.  Then ``bloom_set_bits`` (through
+   times from CUDA events.  Then ``coverage_tally`` (through
+   ``ops.coverage_tally``) against ``graph.coverage.count_coverage`` at the
+   chromosome run's coverage slice (8192 chunks of 4096 bases, k = 25,
+   44.9M nodes looked up through the bucket directory) and at the E. coli
+   single shot (96,749 chunks of 1024 bases, k = 32, with stage 1's ids
+   and looked up): tallies array-equal, times from CUDA events and from
+   the profiler's kernel time.  Then ``bloom_set_bits`` (through
    ``ops.bloom.bloom_add``)
    against the plain PyTorch build on the card, at a small shape, at the
    main run's shape (k = 32, 2^30 bits), at that shape with k = 64 and
@@ -205,6 +211,15 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
 BLOOM_SOURCE = "platanus3_tpu_torch/csrc/bloom.cu"
 OA_SOURCE = "platanus3_tpu_torch/csrc/count_oa.cu"
 SLICE_KMERS_SOURCE = "platanus3_tpu_torch/csrc/slice_kmers.cu"
+COVERAGE_TALLY_SOURCE = "platanus3_tpu_torch/csrc/coverage_tally.cu"
+# coverage_tally at the chromosome run's coverage slice (two slices: 8192
+# chunks of 4096 bases, k = 25) over a node table of the chromosome's size,
+# and at the E. coli single shot (the main run's 96,749 chunks of 1024
+# bases, k = 32, about 20x of the genome); a junction share as chr21's
+# graph has (62.7k of 44.9M nodes).
+CHR21_NODES = 44_900_000
+MAIN_CHUNKS = 96_749
+JUNCTION_SHARE = 62_700 / 44_900_000
 # slice_kmers at the chromosome run's slice shape: k = 25, short_k = 21,
 # coverage threshold 3; reads of four chunks.
 SLICE_K, SLICE_SHORT_K, SLICE_THRESHOLD, SLICE_READ_CHUNKS = 25, 21, 3, 4
@@ -449,6 +464,214 @@ def slice_kmers_shapes(reps: int = 20, plain_reps: int = 3):
                              f"k={SLICE_K}, short_k={SLICE_SHORT_K}",
                     "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound, "library_ms": None})
+    return out
+
+
+def kernel_alone_ms(fn, name: str, reps: int = 20,
+                    rounds: int = 5) -> float | None:
+    """Median over ``rounds`` of the profiler's device time a call of the
+    kernels whose name holds ``name``, over ``reps`` calls of ``fn``;
+    None where the profiler records no device time."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+                 for e in prof.key_averages() if name in e.key)
+        times.append(us / reps / 1e3)
+    ms = statistics.median(times)
+    return ms if ms > 0 else None
+
+
+def pack_on_device(bases):
+    """``[C, N]`` int64 base codes -> ``[C, N / 16]`` packed words, first
+    base most significant (``kmer.pack_bases_np`` on the card)."""
+    import torch
+    c, n = bases.shape
+    shifts = torch.arange(30, -2, -2, dtype=torch.int64, device=bases.device)
+    return (bases.reshape(c, n // 16, 16) << shifts).sum(-1)
+
+
+def node_graph(canon, extra_rows: int, k: int, gen):
+    """A node table of the canonical k-mers ``canon [N, L]`` and
+    ``extra_rows`` random ones, at ``graph_cap`` rows, with
+    ``JUNCTION_SHARE`` of its nodes junctions: what ``count_coverage``
+    reads of a graph."""
+    import types
+
+    import torch
+    from platanus3_tpu_torch import pipeline
+    from platanus3_tpu_torch.ops import count, kmer
+    dev = canon.device
+    k_lanes = canon.shape[1]
+    if extra_rows > 0:
+        extra = torch.randint(0, 1 << 32, (extra_rows, k_lanes),
+                              generator=gen, device=dev, dtype=torch.int64)
+        extra[:, 0] &= kmer._top_mask(k)
+        canon = torch.cat([canon, kmer.canonical(extra, k)[0]])
+    table = count.count_kmers(canon, torch.ones(
+        canon.shape[0], dtype=torch.bool, device=dev), k=k)
+    size = int(table.size)
+    nodes = pipeline.pad_table_keys(table.keys, size,
+                                    pipeline.graph_cap(size))
+    del table
+    is_jun = torch.rand(nodes.shape[0], generator=gen,
+                        device=dev) < JUNCTION_SHARE
+    return types.SimpleNamespace(nodes=nodes, size=torch.tensor(
+        size, device=dev), is_junction_final=is_jun)
+
+
+def tally_bound_ms(chunk_arrays, ids_or_index, is_jun, want) -> float:
+    """The least time of one ``coverage_tally`` launch: its inputs read
+    once (the packed words and chunk arrays, stage 1's ids or the keys
+    and directory, ``is_junction_final``), and the tally words it touches
+    (each node hit's coverage word, each junction hit's 64-byte row) read
+    and written once."""
+    touched = (int((want.node_cov != 0).sum()) * 8
+               + int((want.jun_tally.reshape(-1, 8) != 0).any(1).sum()) * 64)
+    return bytes_bound_ms(nbytes(*chunk_arrays, *ids_or_index, is_jun)
+                          + 2 * touched)
+
+
+def coverage_tally_case(name, dbg, k, cols, nid, reps=20, plain_reps=3):
+    """``coverage_tally`` against the plain chain on one batch of chunks
+    (``nid`` stage 1's ids, or None to look the nodes up): the tallies
+    array-equal, then the kernel's event and profiler times, the
+    directory's build, the plain chain's time (the unpack, the chain and
+    the adds into the running tallies) and the bound.  Returns its
+    measurement dict."""
+    import torch
+    from platanus3_tpu_torch.graph import coverage as cov_mod
+    from platanus3_tpu_torch.ops import coverage_tally as T
+    from platanus3_tpu_torch.ops import kmer
+    m = dbg.nodes.shape[0]
+    packed = cols[0]
+    want = cov_mod.count_coverage(dbg, k, kmer.unpack_bases(packed),
+                                  *cols[1:], nid=nid)
+    index = None if nid is not None else T.node_index(dbg.nodes, dbg.size, k)
+    node_cov = torch.zeros((m,), dtype=torch.int64, device=packed.device)
+    jun = torch.zeros((m * 8,), dtype=torch.int64, device=packed.device)
+
+    def fused():
+        T.coverage_tally(node_cov, jun, *cols, k=k,
+                         is_jun=dbg.is_junction_final, nid=nid, index=index)
+
+    fused()
+    torch.cuda.synchronize()
+    if not (torch.equal(node_cov, want.node_cov)
+            and torch.equal(jun, want.jun_tally)):
+        raise AssertionError(f"coverage_tally {name} differs from the plain "
+                             f"chain")
+    hits = int(want.node_cov.sum())
+    if hits == 0 or int(want.jun_tally.sum()) == 0:
+        raise AssertionError(f"coverage_tally {name}: no hit or no junction")
+    bound = tally_bound_ms(cols, [nid] if nid is not None else
+                           [index.keys, index.offsets],
+                           dbg.is_junction_final, want)
+    del want
+    ms = cuda_time_ms(fused, reps)
+    alone = kernel_alone_ms(fused, "coverage_tally_kernel", reps)
+    index_ms = None if nid is not None else cuda_time_ms(
+        lambda: T.node_index(dbg.nodes, dbg.size, k), 5)
+    del index
+
+    def plain():
+        cov = cov_mod.count_coverage(dbg, k, kmer.unpack_bases(packed),
+                                     *cols[1:], nid=nid)
+        node_cov.add_(cov.node_cov)
+        jun.add_(cov.jun_tally)
+
+    plain_ms = cuda_time_ms(plain, plain_reps)
+    del node_cov, jun
+    torch.cuda.empty_cache()
+    fmt = (lambda v: "not measured" if v is None else f"{v:.4f} ms")
+    log(f"coverage_tally {name} ({hits} node hits): array-equal, kernel "
+        f"{ms:.4f} ms, alone {fmt(alone)}, directory {fmt(index_ms)}, "
+        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms")
+    return {"shape": name, "max_abs_err": 0, "ms": ms, "alone_ms": alone,
+            "index_ms": index_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "library_ms": None}
+
+
+def coverage_tally_shapes():
+    """``coverage_tally`` at the chromosome run's coverage slice (random
+    bases, reads of four chunks, every position's k-mer a node among
+    44.9M) and at the E. coli single shot (chunks read from a random
+    genome of E. coli's length at about 20x, its k-mers the nodes), with
+    stage 1's ids and with the directory's lookups.  Returns one
+    measurement dict a case."""
+    import torch
+    from platanus3_tpu_torch.ops import count, kmer
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = []
+
+    # The chromosome run's coverage slice: two slices of 4096 chunks.
+    c, n, k = 2 * CHR21_SLICE_CHUNKS, CHUNK_LEN_CHR21, SLICE_K
+    packed = torch.randint(0, 1 << 32, (c, n // 16), generator=gen,
+                           device=dev, dtype=torch.int64)
+    stride = n - k + 1
+    nth = torch.arange(c, device=dev) % SLICE_READ_CHUNKS
+    start = nth * stride
+    rlen = torch.full((c,), (SLICE_READ_CHUNKS - 1) * stride + 2000,
+                      dtype=torch.int64, device=dev)
+    vlen = torch.clamp(rlen - start, max=n)
+    base = lambda: torch.randint(0, 4, (c,), generator=gen,  # noqa: E731
+                                 device=dev, dtype=torch.int64)
+    prev = torch.where(nth == 0, 4, base())
+    nxt = torch.where(nth == SLICE_READ_CHUNKS - 1, 4, base())
+    cols = [packed, vlen, start, rlen, prev, nxt]
+    fw, _ = kmer.extract_kmers(kmer.unpack_bases(packed), vlen, k)
+    canon = kmer.canonical(fw, k)[0].reshape(-1, 2)
+    del fw
+    dbg = node_graph(canon, CHR21_NODES - canon.shape[0], k, gen)
+    del canon
+    torch.cuda.empty_cache()
+    out.append(coverage_tally_case(
+        f"chr21 coverage slice: {c} chunks x {n} bases, k={k}, "
+        f"{int(dbg.size)} nodes, looked up", dbg, k, cols, None))
+    del dbg, cols, packed
+    torch.cuda.empty_cache()
+
+    # The E. coli single shot: chunks of a random genome, each a read.
+    c, n, k = MAIN_CHUNKS, CHUNK_LEN, MAIN_K
+    genome = torch.randint(0, 4, (1, GENOME_LEN), generator=gen, device=dev,
+                           dtype=torch.int64)
+    at = torch.randint(0, GENOME_LEN - n, (c,), generator=gen, device=dev)
+    packed = pack_on_device(genome[0, at[:, None] + torch.arange(
+        n, device=dev)])
+    full = lambda v: torch.full((c,), v, dtype=torch.int64,  # noqa: E731
+                                device=dev)
+    cols = [packed, full(n), full(0), full(n), full(4), full(4)]
+    fw, _ = kmer.extract_kmers(genome, torch.tensor([GENOME_LEN],
+                                                    device=dev), k)
+    dbg = node_graph(kmer.canonical(fw[0], k)[0], 0, k, gen)
+    del fw, genome
+    fw, _ = kmer.extract_kmers(kmer.unpack_bases(packed), cols[1], k)
+    canon = kmer.canonical(fw, k)[0]
+    del fw
+    nid = count.lookup_id(count.KmerTable(dbg.nodes, dbg.nodes[:, 0],
+                                          dbg.size),
+                          canon.reshape(-1, 2)).reshape(canon.shape[:2])
+    del canon
+    torch.cuda.empty_cache()
+    shape = (f"E. coli single shot: {c} chunks x {n} bases, k={k}, "
+             f"{int(dbg.size)} nodes")
+    out.append(coverage_tally_case(shape + ", stage 1's ids", dbg, k, cols,
+                                   nid))
+    del nid
+    out.append(coverage_tally_case(shape + ", looked up", dbg, k, cols,
+                                   None))
+    del dbg, cols, packed
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1486,6 +1709,7 @@ def main() -> int:
         f"({lib._name})")
 
     slice_shapes = slice_kmers_shapes()
+    tally_shapes = coverage_tally_shapes()
     small = kernel_vs_plain(50_000, 40_000, 25, 16, 3, seed=1, reps=20)
     log(f"kernel small (50000 rows, k=25, 2^16 bits, 3 hashes): "
         f"max_abs_err {small[0]}, kernel {small[1]:.4f} ms, "
@@ -1576,9 +1800,13 @@ def main() -> int:
         f"the rule pops tandem arrays' loop arms, a known fault of the "
         f"reference (ROADMAP.md Queue 3)")
     del genome
+    from platanus3_tpu_torch.ops import coverage_tally
     with tempfile.TemporaryDirectory() as tmp:
+        tally_before = coverage_tally.coverage_tally.kernel_launches
         (launches["chr21 streaming"], chr21_slice_launches, slices, fasta,
          chr21_gfa) = chr21_run(Path(tmp))
+        chr21_tally_launches = (coverage_tally.coverage_tally.kernel_launches
+                                - tally_before)
         torch.cuda.empty_cache()
         launches["sharded chr21 streaming"] = mesh_streaming_run(
             Path(tmp), fasta, CHR21_ARGS + CHR21_MESH_CAPS, slices, chr21_gfa,
@@ -1622,9 +1850,14 @@ def main() -> int:
         slice_shapes[2]["ms"], slice_shapes[2]["plain_ms"],
         slice_shapes[2]["bound_ms"])
     sk_entry["shapes"] = slice_shapes
+    ct_entry = kernel_entry(
+        "coverage_tally", COVERAGE_TALLY_SOURCE, None, chr21_tally_launches,
+        0, tally_shapes[0]["ms"], tally_shapes[0]["plain_ms"],
+        tally_shapes[0]["bound_ms"])
+    ct_entry["shapes"] = tally_shapes
     log(f"chip_smoke: all phases in {time.time() - started:.1f} s")
     log(json.dumps({"kernels": [bloom_entry, oa_entry, bb_entry,
-                                sk_entry]}))
+                                sk_entry, ct_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

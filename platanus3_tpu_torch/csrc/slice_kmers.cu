@@ -37,14 +37,15 @@
 //       none, as NO_SEED) and its forward lanes (0 where there is none): the
 //       seed reduction's input.
 //
-// Design.  One CTA a chunk.  The chunk's packed words (int64 holding uint32
-// values) are staged in shared memory once, with two zero words after them
-// (kmer.extract_kmers pads the bases with zeros); each thread then takes
-// positions p, p + 256, ...: the forward value is a 96-bit window of three
-// shared words, the reverse complement a __brevll of its complement with
-// the two bits of every base swapped back and realigned, and the hash
-// hash.cuh's.  Neighbouring threads take neighbouring positions, so the
-// counts reads of the window-min and the row writes are coalesced.
+// Design.  One CTA a chunk, on the chunk body of chunk.cuh: the chunk's
+// packed words (int64 holding uint32 values) are staged in shared memory
+// once, with two zero words after them (kmer.extract_kmers pads the bases
+// with zeros); each thread then takes positions p, p + 256, ...: the forward
+// value is a 96-bit window of three shared words, the reverse complement a
+// __brevll of its complement with the two bits of every base swapped back
+// and realigned, and the hash hash.cuh's.  Neighbouring threads take
+// neighbouring positions, so the counts reads of the window-min and the row
+// writes are coalesced.
 //
 // Bound.  Bytes: the packed words read once (8 bytes a 16 positions), the
 // counts read once in pass 2 (4 bytes a position) and the rows written once
@@ -59,6 +60,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "chunk.cuh"
 #include "hash.cuh"
 
 namespace {
@@ -67,7 +69,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr long long kNoSeed = 1LL << 30;
 constexpr unsigned long long kSign = 1ULL << 63;
-constexpr unsigned long long kPairLow = 0x5555555555555555ULL;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 enum Mode { kShortHistogram = 0, kSolidHistogram = 1, kShortCollect = 2,
@@ -95,43 +96,20 @@ struct Slice {
   int64_t* chunk_fw;      // collect-solid: [chunks, lanes]
 };
 
-// The 2kk-bit forward k-mer at chunk position p: bases p..p+kk-1 of the
-// shared words, first base most significant.  p % 16 + kk <= 47 bases lie in
-// words p / 16 .. p / 16 + 2.
-__device__ __forceinline__ unsigned long long forward(const uint32_t* w, int p,
-                                                      int kk) {
-  const int i = p >> 4;
-  const int off = 2 * (p & 15);
-  unsigned long long x =
-      ((static_cast<unsigned long long>(w[i]) << 32) | w[i + 1]) << off;
-  if (off) x |= static_cast<unsigned long long>(w[i + 2]) >> (32 - off);
-  return x >> (64 - 2 * kk);
-}
-
-// Reverse complement of a 2kk-bit k-mer: complement, reverse the 64 bits,
-// swap the two bits of every base back, then realign low.
-__device__ __forceinline__ unsigned long long revcomp(unsigned long long x,
-                                                      int kk) {
-  const unsigned long long r = __brevll(~x);
-  return (((r >> 1) & kPairLow) | ((r & kPairLow) << 1)) >> (64 - 2 * kk);
-}
-
 template <Mode kMode>
 __global__ void __launch_bounds__(kThreads) slice_kmers_kernel(Slice a) {
   constexpr bool kSolid = kMode == kSolidHistogram || kMode == kSolidCollect;
   constexpr bool kCollect = kMode == kShortCollect || kMode == kSolidCollect;
   extern __shared__ uint32_t smem[];
   uint32_t* w = smem;                                     // words + 2
-  int* scratch = reinterpret_cast<int*>(smem + a.words + 2);
+  int* scratch =
+      reinterpret_cast<int*>(smem + p3::chunk_smem_words(a.words));
   const long long c = blockIdx.x;
   const int chunk_len = a.words * 16;
   const int kk = kSolid ? a.k : a.short_k;
   const int np = chunk_len - kk + 1;          // positions a chunk
   const int stride = chunk_len - a.k + 1;     // owned positions a chunk
-  for (int i = threadIdx.x; i < a.words + 2; i += kThreads) {
-    w[i] = i < a.words ? static_cast<uint32_t>(a.packed[c * a.words + i])
-                       : 0u;
-  }
+  p3::stage_chunk(w, a.packed, c, a.words);
   if (!kCollect) {
     for (int i = threadIdx.x; i < kWarps * a.parts; i += kThreads) {
       scratch[i] = 0;
@@ -154,8 +132,8 @@ __global__ void __launch_bounds__(kThreads) slice_kmers_kernel(Slice a) {
   int first = INT_MAX;  // collect-solid: this thread's first solid position
 
   for (int p = threadIdx.x; p < np; p += kThreads) {
-    const unsigned long long fw = forward(w, p, kk);
-    const unsigned long long rc = revcomp(fw, kk);
+    const unsigned long long fw = p3::forward(w, p, kk);
+    const unsigned long long rc = p3::revcomp(fw, kk);
     const unsigned long long canon = rc < fw ? rc : fw;
     const bool valid = p + kk <= vlen;
     const bool in_read = start + p + kk <= rlen;
@@ -205,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) slice_kmers_kernel(Slice a) {
       for (int v = 0; v < kWarps; ++v) p = min(p, scratch[v]);
       const bool seed = p != INT_MAX && start + p < kNoSeed;
       a.chunk_min[c] = seed ? start + p : kNoSeed;
-      const unsigned long long fw = seed ? forward(w, p, kk) : 0ULL;
+      const unsigned long long fw = seed ? p3::forward(w, p, kk) : 0ULL;
       int64_t* out = a.chunk_fw + c * lanes;
       if (lanes == 2) {
         out[0] = static_cast<int64_t>(fw >> 32);
@@ -223,8 +201,8 @@ int launch(const Slice& a, cudaStream_t stream) {
   const int scratch = kMode == kShortCollect ? 0
                       : kMode == kSolidCollect ? kWarps
                                                : kWarps * a.parts;
-  const size_t smem = (static_cast<size_t>(a.words) + 2 + scratch) *
-                      sizeof(uint32_t);
+  const size_t smem =
+      (p3::chunk_smem_words(a.words) + scratch) * sizeof(uint32_t);
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

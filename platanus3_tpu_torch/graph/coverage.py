@@ -9,6 +9,14 @@ Port of ``platanus3_tpu/graph/coverage.py`` (reference
   orientation, the preceding read base increments the LEFT tally and the
   following base the RIGHT tally; a reverse match mirrors both through
   the complement.  Tallies are relative to the canonical orientation.
+
+``count_coverage`` is the plain PyTorch chain over one batch of unpacked
+chunks.  ``CoverageTally`` sums a coverage pass over batches of packed
+chunks (a single shot's one batch, or streaming's slices): on a CUDA
+device at ``k <= 32`` each batch is one launch of the hand-written kernel
+``coverage_tally`` (``ops/coverage_tally.py``), which adds into the
+running tallies; the CPU and ``k > 32`` run ``count_coverage``.  Both give
+the same tallies.
 """
 
 from __future__ import annotations
@@ -19,9 +27,10 @@ import torch
 
 from platanus3_tpu_torch.graph.build import DBG
 from platanus3_tpu_torch.ops import count as count_mod
+from platanus3_tpu_torch.ops import coverage_tally as tally_mod
 from platanus3_tpu_torch.ops import kmer as kmer_mod
 
-__all__ = ["CoverageResult", "count_coverage"]
+__all__ = ["CoverageResult", "CoverageTally", "count_coverage"]
 
 
 class CoverageResult(NamedTuple):
@@ -88,3 +97,54 @@ def count_coverage(dbg: DBG, k: int, bases, valid_len, start, read_len,
     scatter_tally(torch.where(is_fw, 4 + nxt_in, 3 - nxt_in),
                   is_jun & has_next)
     return CoverageResult(node_cov=node_cov, jun_tally=tally)
+
+
+class CoverageTally:
+    """Node coverage and junction tallies of one coverage pass, summed
+    over the batches of chunks given to ``add``; ``result()`` returns
+    them.  On the kernel's path the first add allocates the tallies, and
+    the first add without stage 1's ids builds the node table's bucket
+    directory (``coverage_tally.node_index``), which ``result()`` lets
+    go."""
+
+    def __init__(self, dbg: DBG, k: int):
+        self.dbg, self.k = dbg, k
+        self.node_cov = self.jun_tally = None
+        self._index = None
+
+    def add(self, packed, valid_len, start, read_len, prev_base, next_base,
+            nid=None) -> None:
+        """Add the tallies of the chunks ``packed [C, W]`` (``nid [C, P]``
+        stage 1's per-position node ids, or None to look them up)."""
+        dbg, k = self.dbg, self.k
+        if not tally_mod.uses_kernel(packed, k):
+            cov = count_coverage(dbg, k, kmer_mod.unpack_bases(packed),
+                                 valid_len, start, read_len, prev_base,
+                                 next_base, nid=nid)
+            if self.node_cov is None:
+                self.node_cov, self.jun_tally = cov
+            else:
+                self.node_cov += cov.node_cov
+                self.jun_tally += cov.jun_tally
+            return
+        self._allocate()
+        if nid is None and self._index is None:
+            self._index = tally_mod.node_index(dbg.nodes, dbg.size, k)
+        tally_mod.coverage_tally(
+            self.node_cov, self.jun_tally, packed, valid_len, start,
+            read_len, prev_base, next_base, k=k,
+            is_jun=dbg.is_junction_final.contiguous(), nid=nid,
+            index=self._index)
+
+    def result(self) -> CoverageResult:
+        self._allocate()
+        self._index = None
+        return CoverageResult(node_cov=self.node_cov,
+                              jun_tally=self.jun_tally)
+
+    def _allocate(self) -> None:
+        if self.node_cov is None:
+            m = self.dbg.nodes.shape[0]
+            i64 = dict(dtype=torch.int64, device=self.dbg.nodes.device)
+            self.node_cov = torch.zeros((m,), **i64)
+            self.jun_tally = torch.zeros((m * 8,), **i64)

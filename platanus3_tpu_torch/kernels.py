@@ -15,7 +15,9 @@ each pass; ``run_passes`` runs one to its end, and ``chip_smoke.py`` steps
 through one to time each pass.  They partition their items in two levels
 (``csrc/partition.cuh``); ``partition_levels``, ``partition_ctas`` and
 ``partition_offsets`` size the passes and scan between them.
-``slice_kmers`` (``ops/slice_kmers.py``) is one launch.
+``slice_kmers`` (``ops/slice_kmers.py``) and ``coverage_tally``
+(``ops/coverage_tally.py``) are one launch each, on the chunk body of
+``csrc/chunk.cuh``.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU machines have no ``nvcc``.
@@ -136,7 +138,9 @@ def load_library():
             ("oa_partition_refine", [vp, vp, vp, i, u, i, i, vp, vp, vp]),
             ("oa_block_insert", [vp, vp, vp, i, u, i, vp, vp, vp, vp]),
             ("slice_kmers", [i, vp, vp, vp, vp, vp, ll, i, i, i, i, i, ll, u,
-                             vp, vp, vp, vp, vp, vp, vp])):
+                             vp, vp, vp, vp, vp, vp, vp]),
+            ("coverage_tally", [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, vp,
+                                vp, vp, ll, i, i, vp])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, i
     _lib = lib

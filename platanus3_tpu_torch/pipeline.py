@@ -53,13 +53,15 @@ from platanus3_tpu_torch.io import gfa as gfa_mod
 from platanus3_tpu_torch.io import reads as reads_mod
 from platanus3_tpu_torch.ops import bloom as bloom_mod
 from platanus3_tpu_torch.ops import count as count_mod
+from platanus3_tpu_torch.ops import coverage_tally as tally_mod
 from platanus3_tpu_torch.ops import kmer as kmer_mod
 from platanus3_tpu_torch.ops import slice_kmers as slice_mod
 from platanus3_tpu_torch.ops import solid as solid_mod
 from platanus3_tpu_torch.parallel import sharded
 from platanus3_tpu_torch.utils import checkpoint as ckpt_mod
 from platanus3_tpu_torch.utils.logging import PipelineLog
-from platanus3_tpu_torch.utils.profiling import StageTimer, device_trace
+from platanus3_tpu_torch.utils.profiling import (StageTimer, device_trace,
+                                                 timed_part)
 
 __all__ = ["assemble", "AssemblyResult"]
 
@@ -223,11 +225,14 @@ def note_bloom(timer, dbg, bf) -> None:
 
 
 def _stage3(dbg, packed, valid_len, start, read_len, prev_base, next_base,
-            seed_fw, has_seed, nid, *, k):
-    bases = kmer_mod.unpack_bases(packed)
-    cov = cov_mod.count_coverage(dbg, k, bases, valid_len, start, read_len,
-                                 prev_base, next_base, nid=nid)
-    del bases
+            seed_fw, has_seed, nid, *, k, timer=None):
+    """Stage 3; its coverage and junction tallies are the part
+    ``coverage.tally`` of ``timer``'s span."""
+    with timed_part(timer, "coverage.tally"):
+        tally = cov_mod.CoverageTally(dbg, k)
+        tally.add(packed, valid_len, start, read_len, prev_base, next_base,
+                  nid=nid)
+        cov = tally.result()
     reach_jun, reach_uni = reach_mod.reachable(dbg, seed_fw, has_seed, k)
     chars = seq_mod.member_chars(dbg, k)
     return cov, reach_jun, reach_uni, chars
@@ -430,7 +435,9 @@ def mesh_flags(mesh, *flags):
 RUN_COUNTERS = {"bloom_set_bits_launches":
                 lambda: bloom_mod.bloom_add.kernel_launches,
                 "slice_kmers_launches":
-                lambda: slice_mod.slice_kmers.kernel_launches}
+                lambda: slice_mod.slice_kmers.kernel_launches,
+                "coverage_tally_launches":
+                lambda: tally_mod.coverage_tally.kernel_launches}
 
 
 def run_timer(config, device, mesh) -> StageTimer:
@@ -613,7 +620,8 @@ def _assemble_body(source, config, log, write_output, extra_solid, device,
 
     def run_stage3(dbg, nid):
         return _stage3(dbg, packed, valid_len, start, read_len, prev_base,
-                       next_base, seed_fw, has_seed, nid, k=config.k)
+                       next_base, seed_fw, has_seed, nid, k=config.k,
+                       timer=timer)
 
     if restored3:
         dbg, *stage3 = load_stage3(ckpt, device)

@@ -282,9 +282,11 @@ def _streaming_body(source, config, log, write_output, short_cap, node_cap,
     # ---- pass 3: coverage, one double-width slice at a time ----
     def accumulate_coverage(dbg):
         if mesh is None:
-            return _coverage(dbg, k, c_total, 2 * slice_chunks, slice_arrays)
+            return _coverage(dbg, k, c_total, 2 * slice_chunks, slice_arrays,
+                             timer=timer)
         _broadcast_graph(mesh, dbg)
-        return _coverage(dbg, k, c_total, slice_chunks, slice_arrays, mesh)
+        return _coverage(dbg, k, c_total, slice_chunks, slice_arrays, mesh,
+                         timer)
 
     cov = accumulate_coverage(dbg)
     timer.begin("simplify")
@@ -673,25 +675,23 @@ def _broadcast_graph(mesh, dbg):
         **dict(zip(_COVERAGE_LEAVES, leaves)))
 
 
-def _coverage(dbg, k, c_total, width, slice_arrays, mesh=None):
+def _coverage(dbg, k, c_total, width, slice_arrays, mesh=None, timer=None):
     """Coverage of every chunk, one slice of ``width`` chunks at a time
     (on a mesh, this rank's block of each slice: ``width`` must then be
     the slice size ``slice_arrays`` splits), summed over the ranks with
-    one SUM all-reduce of the integer tallies."""
-    m = dbg.nodes.shape[0]
-    dev = dbg.nodes.device
-    node_cov = torch.zeros((m,), dtype=torch.int64, device=dev)
-    jun_tally = torch.zeros((m * 8,), dtype=torch.int64, device=dev)
+    one SUM all-reduce of the integer tallies.  Each slice's tally, its
+    upload left out, is the part ``coverage.tally`` of ``timer``'s
+    span."""
+    tally = cov_mod.CoverageTally(dbg, k)
     for lo, hi in _slices(c_total, width):
         packed, vlen, _, start, rlen, pb, nb = slice_arrays(lo, hi)
-        cov = cov_mod.count_coverage(dbg, k, kmer_mod.unpack_bases(packed),
-                                     vlen, start, rlen, pb, nb)
-        node_cov += cov.node_cov
-        jun_tally += cov.jun_tally
+        with timed_part(timer, "coverage.tally"):
+            tally.add(packed, vlen, start, rlen, pb, nb)
+    cov = tally.result()
     if mesh is not None:
-        sharded.all_reduce(mesh, node_cov, "sum", "coverage")
-        sharded.all_reduce(mesh, jun_tally, "sum", "coverage")
-    return cov_mod.CoverageResult(node_cov=node_cov, jun_tally=jun_tally)
+        sharded.all_reduce(mesh, cov.node_cov, "sum", "coverage")
+        sharded.all_reduce(mesh, cov.jun_tally, "sum", "coverage")
+    return cov
 
 
 def _follow_coverage(mesh, k, c_total, slice_chunks, slice_arrays):

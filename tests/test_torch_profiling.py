@@ -122,7 +122,8 @@ def test_top_level_spans_tile_the_run(entry):
     assert top[-1] == stats["stages"]["finish"]
     assert sum(top) == pytest.approx(stats["elapsed_s"], rel=1e-9, abs=1e-9)
     assert stats["counts"] == {"bloom_set_bits_launches": 0,
-                               "slice_kmers_launches": 0}
+                               "slice_kmers_launches": 0,
+                               "coverage_tally_launches": 0}
     assert set(stats["span_counts"]) == set(stats["stages"])
 
 

@@ -105,7 +105,8 @@ def test_streaming_equals_single_shot_and_logs_spans():
     assert list(s.stats["stages"]) == [
         "load", "pass1_histogram", "pass1_collect", "pass1_count",
         "pass2_histogram", "pass2_collect", "pass2_dedup", "pass2_table",
-        "graph", "coverage", "simplify", "reach_chars", "emit", "emit.pack",
+        "graph", "coverage", "coverage.tally", "simplify", "reach_chars",
+        "emit", "emit.pack",
         "emit.to_host", "emit.text", "emit.write", "finish"]
     assert s.stats["solid_nodes"] == shot.stats["solid_nodes"]
 
