@@ -85,7 +85,6 @@ class AssemblyConfig:
     # --- execution shaping ---
     chunk_len: int = 1024           # bases per device chunk (reads are split
                                     # into overlapping fixed-width chunks)
-    max_reads_in_flight: int = 0    # 0 = whole dataset in one device batch
 
     # --- output ---
     gfa_path: str = "./de_bruijn_graph.gfa"   # reference path,

@@ -35,8 +35,8 @@ import numpy as np
 
 from platanus3_tpu_torch.ops import kmer as kmer_mod
 
-__all__ = ["gfa_lines", "write_gfa", "sequences_from_pack",
-           "contig_fasta_lines", "write_contig_fasta"]
+__all__ = ["gfa_lines", "sequences_from_pack", "contig_fasta_lines",
+           "write_contig_fasta"]
 
 _ASCII = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -132,13 +132,6 @@ def gfa_lines(jun_pack, seq_pack, reach_uni, num_unitigs: int, m: int,
             lines.append(f"L\t{name}\t+\t{name}\t+\t{ov}")
 
     return lines
-
-
-def write_gfa(path, jun_pack, seq_pack, reach_uni, num_unitigs, m, k):
-    lines = gfa_lines(jun_pack, seq_pack, reach_uni, num_unitigs, m, k)
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
-    return len(lines)
 
 
 def contig_fasta_lines(gfa, min_len: int = 0, include_junctions: bool = False):

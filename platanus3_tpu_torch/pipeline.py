@@ -1,4 +1,4 @@
-"""End-to-end single-shot assembly pipeline.
+"""End-to-end assembly: single shot, and the job driver both modes share.
 
 Port of ``platanus3_tpu/pipeline.py`` (single-shot ``assemble``, at any
 k), with the same stage boundaries and capacities, so that every array
@@ -14,21 +14,24 @@ compares one to one with the JAX package:
             ``bloom_set_bits`` CUDA kernel
   stage 2 (device): graph decomposition; in Bloom mode the closure adds
             filter-positive neighbour k-mers as nodes and rebuilds
-  stage 3 (device): coverage, junction tallies, seed reachability
-  simplification (``clip_tips`` / ``pop_bubbles``): tips and bubbles
-            are chosen on the host (``graph/simplify.py``), the graph is
-            rebuilt without them with exact membership, and stage 3 runs
-            again, for ``simplify_rounds`` rounds or to the fixpoint
+  stage 3 (device): coverage and junction tallies; simplification
+            (``clip_tips`` / ``pop_bubbles``) chooses tips and bubbles on
+            the host (``graph/simplify.py``), rebuilds the graph without
+            them with exact membership and covers again, for
+            ``simplify_rounds`` rounds or to the fixpoint; then seed
+            reachability and member chars
   stage 4 (device -> host): emission packs, GFA rendering
 
-``config.checkpoint_dir`` checkpoints stages 1, 2 and 3 as the JAX
-package does (``utils/checkpoint.py``), and ``config.trace_dir`` wraps the
-run in a ``torch.profiler`` trace (``utils/profiling.device_trace``).
-Streaming is a separate entry point (``streaming.assemble_streaming``,
-``--streaming`` in the CLI).  With a ``mesh`` (``parallel/sharded.py``),
-stage 1 runs sharded over the ranks, Bloom build included; stages 2-4
-then run on rank 0 alone while the other ranks wait, and every rank
-returns rank 0's GFA lines, counts and stats (``share_result``).  The
+``run_job`` runs this sequence for single shot and for streaming
+(``streaming.assemble_streaming``, ``--streaming`` in the CLI); a ``Mode``
+brings its span names, its checkpoint stages and two functions: the front
+end (stage 1, or streaming's passes 1-2) and the coverage.  With a
+``mesh`` (``parallel/sharded.py``) the front end runs sharded over the
+ranks, then rank 0 goes on alone while the other ranks take part only in
+streaming's coverage passes, and every rank returns rank 0's GFA lines,
+counts and stats.  ``config.checkpoint_dir`` checkpoints the front end,
+stage 2 (single shot) and stage 3 (``utils/checkpoint.py``), and
+``config.trace_dir`` wraps the run in a ``torch.profiler`` trace.  The
 TPU-only staged paths are not ported.
 """
 
@@ -36,8 +39,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -135,21 +139,6 @@ def checkpointer(config: AssemblyConfig, batch, need_bloom: bool,
                       if extra_solid else ""))
 
 
-def save_stage3(ckpt, dbg, cov, reach_jun, reach_uni, chars) -> None:
-    """The post-simplification graph, coverage, reachability and member
-    chars: a resume goes straight to emission."""
-    ckpt.save("stage3", **ckpt_mod.tuple_arrays("dbg", dbg),
-              **ckpt_mod.tuple_arrays("cov", cov), reach_jun=reach_jun,
-              reach_uni=reach_uni, chars=chars)
-
-
-def load_stage3(ckpt, device):
-    d = ckpt.load("stage3", device)
-    return (ckpt_mod.tuple_from(build_mod.DBG, "dbg", d),
-            ckpt_mod.tuple_from(cov_mod.CoverageResult, "cov", d),
-            d["reach_jun"], d["reach_uni"], d["chars"])
-
-
 def _stage1(packed, valid_len, read_id, start, read_len, cov_threshold, *,
             k, short_k, num_reads, timer=None):
     """Stage 1, in the parts ``stage1.solid``, ``stage1.seeds`` and
@@ -224,18 +213,31 @@ def note_bloom(timer, dbg, bf) -> None:
         timer.note("bloom_bits_set", lambda: bloom_mod.popcount(bf))
 
 
-def _stage3(dbg, packed, valid_len, start, read_len, prev_base, next_base,
-            seed_fw, has_seed, nid, *, k, timer=None):
-    """Stage 3; its coverage and junction tallies are the part
+def _tally(dbg, packed, valid_len, start, read_len, prev_base, next_base,
+           nid, *, k, timer=None):
+    """Coverage and junction tallies of the whole batch, the part
     ``coverage.tally`` of ``timer``'s span."""
     with timed_part(timer, "coverage.tally"):
         tally = cov_mod.CoverageTally(dbg, k)
         tally.add(packed, valid_len, start, read_len, prev_base, next_base,
                   nid=nid)
-        cov = tally.result()
-    reach_jun, reach_uni = reach_mod.reachable(dbg, seed_fw, has_seed, k)
-    chars = seq_mod.member_chars(dbg, k)
-    return cov, reach_jun, reach_uni, chars
+        return tally.result()
+
+
+def reach_chars(dbg, seed_fw, has_seed, k):
+    """``(reach_jun, reach_uni, chars)`` of the final graph: the seeds'
+    reachability and the member chars, once a run."""
+    return (*reach_mod.reachable(dbg, seed_fw, has_seed, k),
+            seq_mod.member_chars(dbg, k))
+
+
+def _stage3(dbg, packed, valid_len, start, read_len, prev_base, next_base,
+            seed_fw, has_seed, nid, *, k, timer=None):
+    """Stage 3 in one call, as the JAX package's ``_stage3``: the tallies,
+    then ``reach_chars``."""
+    cov = _tally(dbg, packed, valid_len, start, read_len, prev_base,
+                 next_base, nid, k=k, timer=timer)
+    return (cov, *reach_chars(dbg, seed_fw, has_seed, k))
 
 
 def _n50(lengths) -> int:
@@ -313,25 +315,25 @@ _SIMPLIFY_LEAVES = ("size", "left_present", "right_present",
                     "unitig_circular", "num_unitigs")
 
 
-def simplify_graph(dbg, stage3, nid, bf, config, log, run_stage3, timer):
-    """Tip clipping / bubble popping rounds after stage 3 (``stage3`` is
-    its outputs): the drop decision on the host
-    (``graph/simplify.decide_drops``), then the graph rebuilt from the
-    kept nodes with EXACT membership (after a deletion the Bloom filter no
-    longer describes the node set) and stage 3 run again.  Kept nodes keep
-    their lexicographic order, so stage 1's node ids remap by rank among
-    the kept rows.  Each round's parts are parts of ``timer``'s span:
-    ``simplify.to_host`` (the DBG leaves and coverage to numpy),
-    ``simplify.decide``, ``simplify.stage2`` (the kept keys and the
-    rebuild) and ``simplify.stage3``.  Returns ``(dbg, stage-3 outputs,
-    unitigs dropped)``."""
+def simplify_graph(job, dbg, cov, nid, bf, cover):
+    """Tip clipping / bubble popping rounds after coverage: the drop
+    decision on the host (``graph/simplify.decide_drops``), then the graph
+    rebuilt from the kept nodes with EXACT membership (after a deletion
+    the Bloom filter no longer describes the node set) and ``cover(dbg,
+    nid)`` run again.  Kept nodes keep their lexicographic order, so stage
+    1's node ids remap by rank among the kept rows.  Each round's parts
+    are parts of the run's span: ``simplify.to_host`` (the DBG leaves
+    and coverage to numpy), ``simplify.decide``, ``simplify.stage2`` (the
+    kept keys and the rebuild) and ``simplify.stage3`` (coverage).
+    Returns ``(dbg, cov, unitigs dropped)``."""
+    config, log, timer = job.config, job.log, job.timer
     rounds = config.simplify_rounds if config.simplify_rounds > 0 else 100
     dropped = 0
     for rnd in range(rounds):
         with timer.part("simplify.to_host"):
             dbg_np = dbg._replace(**{f: getattr(dbg, f).cpu().numpy()
                                      for f in _SIMPLIFY_LEAVES})
-            node_cov = stage3[0].node_cov.cpu().numpy()
+            node_cov = cov.node_cov.cpu().numpy()
         with timer.part("simplify.decide"):
             keep, n_drop = simp_mod.decide_drops(dbg_np, node_cov, config)
         if keep is None:
@@ -344,16 +346,16 @@ def simplify_graph(dbg, stage3, nid, bf, config, log, run_stage3, timer):
             nodes = pad_table_keys(kept, n_keep, graph_cap(n_keep))
             size = torch.tensor(n_keep, dtype=torch.int64,
                                 device=nodes.device)
-            del dbg, kept, stage3
+            del dbg, kept, cov
             dbg = run_stage2(nodes, size, bf, k=config.k, use_exact=True)
         with timer.part("simplify.stage3"):
             if nid is not None:
                 remap = torch.where(keep, torch.cumsum(keep, 0) - 1, -1)
                 nid = torch.where(nid >= 0, remap[nid.clamp(min=0)], -1)
-            stage3 = run_stage3(dbg, nid)
+            cov = cover(dbg, nid)
         log.write(f"simplify round {rnd + 1}: dropped {n_drop} unitigs, "
                   f"{n_keep} nodes left")
-    return dbg, stage3, dropped
+    return dbg, cov, dropped
 
 
 def _emit_output(dbg, cov, reach_jun, reach_uni, chars, k, timer):
@@ -383,6 +385,75 @@ def _emit_output(dbg, cov, reach_jun, reach_uni, chars, k, timer):
     return seqs, lines
 
 
+class Spans(NamedTuple):
+    """The spans ``run_job`` opens (None: none, the work stays in the span
+    in progress).  ``bloom`` holds a Bloom build the front end left
+    pending; on a mesh the other ranks follow rank 0's coverage passes in
+    ``follow`` (None: rank 0 covers alone).  A restore of the front end's
+    checkpoint opens ``restore_front``, one of stage 3's ``restore`` and
+    goes straight to emission (without it, stage 3 is restored after the
+    front end, in ``coverage``)."""
+
+    front: str
+    graph: str
+    coverage: str
+    emit: str
+    bloom: Optional[str] = None
+    simplify: Optional[str] = None
+    reach: Optional[str] = None
+    follow: Optional[str] = None
+    restore_front: Optional[str] = None
+    restore: Optional[str] = None
+
+
+class Mode(NamedTuple):
+    """A mode of assembly for ``run_job``: ``name`` (the entry point, in
+    errors), checkpoint digest ``tokens``, ``spans``, the ``checkpoints``
+    saved before stage 3 (the front end's first), whether the Bloom
+    ``closure`` runs, and two functions.  ``front(job, bf)``, run by every
+    rank of a mesh with the empty filter ``bf`` (an 8-bit stand-in
+    without Bloom membership), returns ``(table, seed_fw, has_seed, nid,
+    bf, min_pos)``: the node table (rank 0's), the seeds, stage 1's
+    per-position node ids or None, the filter holding the solid nodes or
+    None (the driver builds it), and each read's first solid position or
+    None (``spass2`` keeps it).  ``cover(job, dbg, nid)`` returns the
+    coverage of ``dbg``; on a mesh rank 0 calls it with each graph, then
+    with None once no pass follows, and the other ranks call it once with
+    None, taking part in rank 0's passes until then."""
+
+    name: str
+    tokens: tuple
+    spans: Spans
+    checkpoints: tuple
+    closure: bool
+    front: Callable
+    cover: Callable
+
+
+@dataclasses.dataclass
+class Job:
+    """One run as a mode's functions see it; ``on_device`` holds the batch
+    fields uploaded so far (``batch_fields``)."""
+
+    config: AssemblyConfig
+    batch: reads_mod.ReadBatch
+    device: torch.device
+    mesh: Optional[sharded.Mesh]
+    timer: StageTimer
+    log: PipelineLog
+    need_bloom: bool
+    on_device: dict = dataclasses.field(default_factory=dict)
+
+
+def batch_fields(job, *names):
+    """The batch's fields ``names`` on the device, each uploaded once."""
+    for f in names:
+        if f not in job.on_device:
+            job.on_device[f] = torch.from_numpy(np.asarray(getattr(
+                job.batch, f)).astype(np.int64)).to(job.device)
+    return tuple(job.on_device[f] for f in names)
+
+
 def assemble(source, config: AssemblyConfig,
              log: Optional[PipelineLog] = None, write_output: bool = True,
              mesh=None, extra_solid=None, device="cuda") -> AssemblyResult:
@@ -410,24 +481,55 @@ def assemble(source, config: AssemblyConfig,
     membership it adds the counters of ``note_bloom`` and the part
     ``graph.bloom_query`` of stage 2.
     """
+    spans = Spans(front="stage1_count_solid", bloom="bloom_build",
+                  graph="stage2_graph", coverage="stage3_coverage",
+                  emit="stage4_emit", simplify="simplify" if (
+                      config.clip_tips or config.pop_bubbles) else None)
+    return run_job(source, config, log, write_output, extra_solid, device,
+                   mesh, Mode("assemble", (), spans, ("stage1", "stage2"),
+                              True, _front_batch, _cover_batch))
+
+
+def _front_batch(job, bf):
+    """Single shot's front end: stage 1 over the whole batch on the
+    device, the Bloom build left to the driver, or over the mesh
+    (``sharded.sharded_stage1`` on the padded batch), Bloom build
+    included; raises JAX's message on every rank when a bucket of the
+    mesh overflowed."""
+    config, batch, mesh = job.config, job.batch, job.mesh
+    short_k = min(config.short_k, config.k)
+    nid = None
     if mesh is not None:
-        device = mesh.device
-    device = check_device(device, "assemble")
-    with device_trace(trace_dir(config, mesh), device):
-        return _assemble_impl(source, config, log, write_output,
-                              extra_solid, device, mesh)
+        arrays = sharded.pad_batch_to_devices(
+            (batch.packed, batch.valid_len, batch.read_id, batch.start,
+             batch.read_len), mesh.size)
+        table, bf, seed_fw, has_seed, ovf = sharded.sharded_stage1(
+            mesh, *arrays, bf, k=config.k, short_k=short_k,
+            cov_threshold=config.cov_threshold, num_reads=batch.num_reads,
+            add_to_bloom=job.need_bloom)
+        if ovf > 0:
+            raise RuntimeError(f"all-to-all bucket overflow ({ovf} k-mers "
+                               f"dropped); increase slack")
+        sharded.release_cache(mesh)
+    else:
+        table, seed_fw, has_seed, nid = _stage1(
+            *batch_fields(job, "packed", "valid_len", "read_id", "start",
+                          "read_len"), config.cov_threshold, k=config.k,
+            short_k=short_k, num_reads=batch.num_reads, timer=job.timer)
+        bf = None
+    job.log.metric("seed kmer num", int(has_seed.sum()))
+    return table, seed_fw, has_seed, nid, bf, None
 
 
-def trace_dir(config, mesh):
-    """Where the run's trace goes: only rank 0 of a mesh traces."""
-    return config.trace_dir if mesh is None or mesh.is_root else ""
-
-
-def mesh_flags(mesh, *flags):
-    """Rank 0's decisions (checkpoint restores) on every rank."""
-    if mesh is None:
-        return flags
-    return sharded.broadcast_object(mesh, flags)
+def _cover_batch(job, dbg, nid):
+    """Single shot's coverage: one ``CoverageTally`` over the whole batch,
+    with stage 1's ids where they hold.  Rank 0 of a mesh covers alone,
+    so a call with None has nothing to do."""
+    if dbg is None:
+        return None
+    return _tally(dbg, *batch_fields(
+        job, "packed", "valid_len", "start", "read_len", "prev_base",
+        "next_base"), nid, k=job.config.k, timer=job.timer)
 
 
 # Process-wide counts whose rise over each span and over the run the stats
@@ -440,35 +542,200 @@ RUN_COUNTERS = {"bloom_set_bits_launches":
                 lambda: tally_mod.coverage_tally.kernel_launches}
 
 
-def run_timer(config, device, mesh) -> StageTimer:
-    """The run's ``StageTimer`` (with ``RUN_COUNTERS``), to be entered
-    around the run; on a mesh, this rank's byte counts start again from
-    0."""
+def run_job(source, config, log, write_output, extra_solid, device, mesh,
+            mode: Mode) -> AssemblyResult:
+    """The job of both entry points: load, Bloom set-up, checkpoint key
+    and restore flags, ``mode.front``, extra-solid merge, the front end's
+    checkpoint, compaction to ``graph_cap``, the Bloom build the front end
+    left pending, stage 2 and ``note_bloom``, the Bloom closure where the
+    mode runs it, ``mode.cover``, simplification (each round covers
+    again), ``reach_chars``, the stage-3 checkpoint and ``finish``.  On a
+    mesh, the other ranks run the front end, follow rank 0's coverage
+    passes and return rank 0's result (``share_result``); rank 0 works
+    alone after the front end, in ``sharded.root_section``, so that its
+    errors reach them."""
+    log = log or PipelineLog(config.log_path, echo=False)
     if mesh is not None:
-        mesh.traffic.clear()
-    return StageTimer(profile=config.profile_stages, device=device,
-                      counters=RUN_COUNTERS)
+        device = mesh.device
+        mesh.traffic.clear()     # this rank's bytes count from here
+        log.write(sharded.describe(mesh))
+    device = check_device(device, mode.name)
+    root = mesh is None or mesh.is_root
+    spans, front_stage = mode.spans, mode.checkpoints[0]
+    with device_trace(config.trace_dir if root else "", device), \
+            StageTimer(profile=config.profile_stages, device=device,
+                       counters=RUN_COUNTERS) as timer, \
+            contextlib.ExitStack() as rank0_alone:
+        timer.begin("load")
+        log.write("Assemble")
+        batch = load_batch(source, config)
+        log.write(f"read file loaded ({batch.num_reads} reads, "
+                  f"{batch.all_bases} bases, {batch.num_chunks} chunks)")
+        if batch.num_reads == 0:
+            return empty_result(config, log, timer, write_output and root)
+
+        need_bloom = (not config.use_exact_membership) or config.build_bloom
+        ckpt = (checkpointer(config, batch, need_bloom, extra_solid,
+                             *mode.tokens) if root else None)
+        flags = tuple(ckpt is not None and ckpt.has(stage)
+                      for stage in ("stage3", front_stage))
+        if mesh is not None:
+            flags = sharded.broadcast_object(mesh, flags)   # rank 0's
+        restored3, restored = flags
+        jump = restored3 and spans.restore is not None
+        skip_front = restored or jump
+        first = spans.front
+        if skip_front:
+            first = ((spans.restore if jump else spans.restore_front)
+                     if root else spans.follow) or first
+        timer.begin(first)
+        if need_bloom:
+            bits, hashes = config.auto_filter_bits(batch.all_bases)
+            bf = bloom_mod.make_bloom(bits, hashes, device=device)
+            log.metric("filter_bits", 1 << bf.log2_bits)
+            log.metric("num_hashes", bf.num_hashes)
+        else:
+            bf = bloom_mod.make_bloom(8, 1, device=device)  # never queried
+        job = Job(config, batch, device, mesh, timer, log, need_bloom)
+
+        if not root:
+            if not skip_front:
+                mode.front(job, bf)   # what it returns is rank 0's
+                if spans.follow:
+                    timer.begin(spans.follow)
+            mode.cover(job, None, None)
+            timer.end()
+            mesh_stats(mesh, timer)
+            return share_result(mesh)
+        if not skip_front:
+            table, seed_fw, has_seed, nid, front_bf, min_pos = mode.front(
+                job, bf)
+        if mesh is not None:
+            rank0_alone.enter_context(sharded.root_section(mesh))
+
+        closure_rounds = simplify_drops = 0
+        if not jump:
+            if restored:
+                d = ckpt.load(front_stage, device)
+                if front_stage == "stage1":   # no filter: the driver builds it
+                    table = ckpt_mod.tuple_from(count_mod.KmerTable, "table",
+                                                d)
+                    front_bf = None
+                else:
+                    table = count_mod.KmerTable(d["keys"], torch.zeros_like(
+                        d["keys"][:, 0]), d["size"])
+                    front_bf = (bf._replace(bits=d["bf_bits"]) if need_bloom
+                                else bf)
+                seed_fw, has_seed, nid = d["seed_fw"], d["has_seed"], None
+                log.write(f"{front_stage} restored from checkpoint")
+            elif extra_solid:
+                etab, eseed = extra_solid_table(extra_solid, config, device)
+                table = count_mod.merge_tables(table, etab)
+                del etab
+                nid = None  # node ranks shifted; coverage looks them up
+                seed_fw = torch.cat([seed_fw, eseed], dim=0)
+                has_seed = torch.cat([has_seed, torch.ones_like(
+                    eseed[:, 0], dtype=torch.bool)])
+                log.write(f"extra-solid merge: {len(extra_solid)} seqs")
+            num_nodes = int(table.size)
+            if ckpt is not None and not restored:
+                n = max(num_nodes, 1)   # the valid prefix: compaction pads
+                if front_stage == "stage1":
+                    head = ckpt_mod.tuple_arrays("table", table._replace(
+                        keys=table.keys[:n], counts=table.counts[:n]))
+                    tail = {}
+                else:   # also each read's first solid position, the filter
+                    head = dict(keys=table.keys[:n], size=table.size,
+                                min_pos=min_pos)
+                    tail = {"bf_bits": front_bf.bits} if need_bloom else {}
+                ckpt.save(front_stage, **head, seed_fw=seed_fw,
+                          has_seed=has_seed, **tail)
+                log.write(f"{front_stage} checkpoint saved")
+            log.write(f"counted short kmer; solid nodes={num_nodes}")
+            pending = need_bloom and front_bf is None
+            bf = bf if front_bf is None else front_bf
+            timer.begin(spans.bloom if pending else spans.graph)
+
+            nodes = pad_table_keys(table.keys, num_nodes,
+                                   graph_cap(num_nodes))
+            del table
+            size = torch.tensor(num_nodes, dtype=torch.int64, device=device)
+            if pending:
+                bf = _bloom_from_nodes(nodes, size, bf, k=config.k)
+                timer.begin(spans.graph)
+            if restored3:
+                dbg = None  # the stage-3 checkpoint holds the final graph
+            elif ckpt is not None and ckpt.has("stage2"):
+                dbg = ckpt_mod.tuple_from(build_mod.DBG, "dbg",
+                                          ckpt.load("stage2", device))
+                log.write("stage2 restored from checkpoint")
+            else:
+                dbg = run_stage2(nodes, size, bf, k=config.k,
+                                 use_exact=config.use_exact_membership,
+                                 timer=timer)
+                if not config.use_exact_membership:
+                    note_bloom(timer, dbg, bf)
+                    if mode.closure and config.bloom_expand_rounds:
+                        dbg, nodes, size, closure_rounds = \
+                            _expand_bloom_closure(dbg, nodes, size, bf,
+                                                  config, log, timer)
+                        if closure_rounds:
+                            nid = None  # node rows shifted
+                if ckpt is not None and "stage2" in mode.checkpoints:
+                    ckpt.save("stage2", **ckpt_mod.tuple_arrays("dbg", dbg))
+                    log.write("stage2 checkpoint saved")
+            del nodes
+            log.write("de bruijn graph loaded")
+            timer.begin(spans.coverage)
+
+        if restored3:
+            d = ckpt.load("stage3", device)
+            dbg = ckpt_mod.tuple_from(build_mod.DBG, "dbg", d)
+            cov = ckpt_mod.tuple_from(cov_mod.CoverageResult, "cov", d)
+            reach_jun, reach_uni, chars = (d["reach_jun"], d["reach_uni"],
+                                           d["chars"])
+            log.write("stage3 restored from checkpoint (skip to emission)")
+            if jump:
+                num_nodes = int(dbg.size)
+        else:
+            cov = mode.cover(job, dbg, nid)
+            log.write("count node coverage")
+            if spans.simplify:
+                timer.begin(spans.simplify)
+            if config.clip_tips or config.pop_bubbles:
+                dbg, cov, simplify_drops = simplify_graph(
+                    job, dbg, cov, nid, bf, functools.partial(mode.cover, job))
+            if spans.reach:
+                timer.begin(spans.reach)
+        if mesh is not None:
+            mode.cover(job, None, None)   # no coverage pass follows
+        if not restored3:
+            reach_jun, reach_uni, chars = reach_chars(dbg, seed_fw, has_seed,
+                                                      config.k)
+        timer.begin(spans.emit)
+        if ckpt is not None and not restored3:
+            # The final graph and stage 3: a resume goes straight to
+            # emission.
+            ckpt.save("stage3", **ckpt_mod.tuple_arrays("dbg", dbg),
+                      **ckpt_mod.tuple_arrays("cov", cov),
+                      reach_jun=reach_jun, reach_uni=reach_uni, chars=chars)
+            log.write("stage3 checkpoint saved")
+
+        result = finish(job, write_output, dbg, cov, reach_jun, reach_uni,
+                        chars, solid_nodes=num_nodes,
+                        closure_rounds=closure_rounds,
+                        simplify_drops=simplify_drops)
+        return result if mesh is None else share_result(mesh, result)
 
 
-def root_part(mesh, stack: contextlib.ExitStack) -> None:
-    """From here on rank 0 works alone while the other ranks wait for it
-    (``sharded.root_section``): an error on rank 0 reaches them."""
-    if mesh is not None and mesh.is_root:
-        stack.enter_context(sharded.root_section(mesh))
-
-
-def share_result(mesh, timer, result: Optional[AssemblyResult] = None
+def share_result(mesh, result: Optional[AssemblyResult] = None
                  ) -> AssemblyResult:
-    """The end of a mesh run on a rank other than 0: hand this rank's
-    stats to rank 0 (``mesh_stats``), then return rank 0's result without
-    the graph.  Rank 0 calls it with its result, after ``finish``."""
-    if not mesh.is_root:
-        timer.end()
-        mesh_stats(mesh, timer)
+    """Rank 0's result on every rank of a mesh, without the graph on the
+    others: rank 0 passes its result, the others None."""
     shared = sharded.broadcast_object(mesh, None if result is None else (
         result.gfa_lines, result.straight_seqs, result.num_nodes,
         result.num_junctions, result.num_straights, result.stats))
-    if mesh.is_root:
+    if result is not None:
         return result
     lines, seqs, n_nodes, n_j, n_s, stats = shared
     return AssemblyResult(gfa_lines=lines, straight_seqs=seqs, dbg=None,
@@ -481,190 +748,11 @@ def mesh_stats(mesh, timer) -> dict:
     """``stats['mesh']``: the backend, the devices and every rank's
     ``sharded.rank_stats`` with its ``RUN_COUNTERS``.  The other ranks
     wait in a broadcast until rank 0 gets here, so that an error of
-    rank 0 before it reaches them (``root_part``)."""
+    rank 0 before it reaches them (``sharded.root_section``)."""
     sharded.broadcast_object(mesh, "stats")
     return {"backend": mesh.backend, "world_size": mesh.size,
             "devices": mesh.devices,
             "ranks": sharded.rank_stats(mesh, timer, timer.counts())}
-
-
-def _assemble_impl(source, config, log, write_output, extra_solid, device,
-                   mesh):
-    with run_timer(config, device, mesh) as timer, \
-            contextlib.ExitStack() as rank0_alone:
-        return _assemble_body(source, config, log, write_output, extra_solid,
-                              device, mesh, timer, rank0_alone)
-
-
-def _assemble_body(source, config, log, write_output, extra_solid, device,
-                   mesh, timer, rank0_alone):
-    log = log or PipelineLog(config.log_path, echo=False)
-    timer.begin("load")
-    if mesh is not None:
-        log.write(sharded.describe(mesh))
-    log.write("Assemble")
-
-    # ---- load ----
-    batch = load_batch(source, config)
-    log.write(f"read file loaded ({batch.num_reads} reads, "
-              f"{batch.all_bases} bases, {batch.num_chunks} chunks)")
-    timer.begin("stage1_count_solid")
-
-    if batch.num_reads == 0:
-        return empty_result(config, log, timer, write_output and (
-            mesh is None or mesh.is_root))
-
-    need_bloom = (not config.use_exact_membership) or config.build_bloom
-    if need_bloom:
-        bits, hashes = config.auto_filter_bits(batch.all_bases)
-        bf = bloom_mod.make_bloom(bits, hashes, device=device)
-        log.metric("filter_bits", 1 << bf.log2_bits)
-        log.metric("num_hashes", bf.num_hashes)
-    else:
-        bf = bloom_mod.make_bloom(8, 1, device=device)  # never built/queried
-
-    def dev(x):
-        return torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
-
-    def upload():
-        return tuple(dev(getattr(batch, f)) for f in (
-            "packed", "valid_len", "read_id", "start", "read_len"))
-
-    # On a mesh, rank 0 uploads the whole batch only after sharded stage 1.
-    arrays = upload() if mesh is None else None
-
-    # ---- stage 1: count + solidity + seeds ----
-    ckpt = (checkpointer(config, batch, need_bloom, extra_solid)
-            if mesh is None or mesh.is_root else None)
-    restored1, = mesh_flags(mesh, ckpt is not None and ckpt.has("stage1"))
-    bloom_pending = need_bloom  # the sharded stage 1 builds it instead
-    if restored1:
-        if mesh is not None and not mesh.is_root:
-            return share_result(mesh, timer)
-        root_part(mesh, rank0_alone)
-        # The saved table and seeds include the extra-solid merge.
-        d = ckpt.load("stage1", device)
-        table = ckpt_mod.tuple_from(count_mod.KmerTable, "table", d)
-        seed_fw, has_seed, nid = d["seed_fw"], d["has_seed"], None
-        log.write("stage1 restored from checkpoint")
-    elif mesh is not None:
-        table, bf, seed_fw, has_seed = _sharded_stage1(
-            mesh, batch, bf, config, need_bloom)
-        nid, bloom_pending = None, False
-        if not mesh.is_root:
-            return share_result(mesh, timer)
-        root_part(mesh, rank0_alone)
-    else:
-        table, seed_fw, has_seed, nid = _stage1(
-            *arrays, config.cov_threshold, k=config.k,
-            short_k=min(config.short_k, config.k),
-            num_reads=batch.num_reads, timer=timer)
-    packed, valid_len, read_id, start, read_len = arrays or upload()
-    if extra_solid and not restored1:
-        etab, eseed = extra_solid_table(extra_solid, config, device)
-        table = count_mod.merge_tables(table, etab)
-        del etab
-        nid = None  # node ranks shifted; stage 3 looks the positions up
-        seed_fw = torch.cat([seed_fw, eseed], dim=0)
-        has_seed = torch.cat([has_seed, torch.ones(
-            (eseed.shape[0],), dtype=torch.bool, device=device)])
-        log.write(f"extra-solid merge: {len(extra_solid)} seqs")
-    num_nodes = int(table.size)
-    if ckpt is not None and not restored1:
-        # Only the valid prefix: the compaction below pads again.
-        n_keep = max(num_nodes, 1)
-        ckpt.save("stage1", **ckpt_mod.tuple_arrays("table", table._replace(
-            keys=table.keys[:n_keep], counts=table.counts[:n_keep])),
-            seed_fw=seed_fw, has_seed=has_seed)
-        log.write("stage1 checkpoint saved")
-    log.write(f"counted short kmer; solid nodes={num_nodes}")
-    log.metric("seed kmer num", int(has_seed.sum()))
-    timer.begin("bloom_build" if bloom_pending else "stage2_graph")
-
-    # ---- compact node table to the graph capacity ----
-    nodes = pad_table_keys(table.keys, num_nodes, graph_cap(num_nodes))
-    del table
-    size = torch.tensor(num_nodes, dtype=torch.int64, device=device)
-    if bloom_pending:
-        bf = _bloom_from_nodes(nodes, size, bf, k=config.k)
-        timer.begin("stage2_graph")
-
-    # ---- stage 2: graph ----
-    restored3 = ckpt is not None and ckpt.has("stage3")
-    closure_rounds = 0
-    if restored3:
-        dbg = None  # the stage-3 checkpoint holds the final graph
-    elif ckpt is not None and ckpt.has("stage2"):
-        dbg = ckpt_mod.tuple_from(build_mod.DBG, "dbg",
-                                  ckpt.load("stage2", device))
-        log.write("stage2 restored from checkpoint")
-    else:
-        dbg = run_stage2(nodes, size, bf, k=config.k,
-                         use_exact=config.use_exact_membership, timer=timer)
-        if not config.use_exact_membership:
-            note_bloom(timer, dbg, bf)
-        if not config.use_exact_membership and config.bloom_expand_rounds:
-            dbg, nodes, size, closure_rounds = _expand_bloom_closure(
-                dbg, nodes, size, bf, config, log, timer)
-            if closure_rounds:
-                # Node rows shifted; stage 3 looks the positions up again.
-                nid = None
-        if ckpt is not None:
-            ckpt.save("stage2", **ckpt_mod.tuple_arrays("dbg", dbg))
-            log.write("stage2 checkpoint saved")
-    log.write("de bruijn graph loaded")
-    timer.begin("stage3_coverage")
-
-    # ---- stage 3: coverage + reachability ----
-    prev_base, next_base = dev(batch.prev_base), dev(batch.next_base)
-
-    def run_stage3(dbg, nid):
-        return _stage3(dbg, packed, valid_len, start, read_len, prev_base,
-                       next_base, seed_fw, has_seed, nid, k=config.k,
-                       timer=timer)
-
-    if restored3:
-        dbg, *stage3 = load_stage3(ckpt, device)
-        log.write("stage3 restored from checkpoint (skip to emission)")
-    else:
-        stage3 = run_stage3(dbg, nid)
-        log.write("count node coverage")
-
-    simplify_drops = 0
-    if (config.clip_tips or config.pop_bubbles) and not restored3:
-        timer.begin("simplify")
-        dbg, stage3, simplify_drops = simplify_graph(
-            dbg, stage3, nid, bf, config, log, run_stage3, timer)
-    timer.begin("stage4_emit")
-    cov, reach_jun, reach_uni, chars = stage3
-    if ckpt is not None and not restored3:
-        save_stage3(ckpt, dbg, cov, reach_jun, reach_uni, chars)
-        log.write("stage3 checkpoint saved")
-
-    result = finish(config, log, timer, batch, write_output, dbg, cov,
-                    reach_jun, reach_uni, chars, device, solid_nodes=num_nodes,
-                    closure_rounds=closure_rounds,
-                    simplify_drops=simplify_drops, mesh=mesh)
-    return result if mesh is None else share_result(mesh, timer, result)
-
-
-def _sharded_stage1(mesh, batch, bf, config, need_bloom):
-    """Stage 1 over the mesh (``sharded.sharded_stage1``) on the padded
-    batch; raises JAX's message on every rank when a bucket overflowed.
-    Returns ``(table, bf, seed_fw, has_seed)``."""
-    arrays = sharded.pad_batch_to_devices(
-        (batch.packed, batch.valid_len, batch.read_id, batch.start,
-         batch.read_len), mesh.size)
-    table, bf, seed_fw, has_seed, ovf = sharded.sharded_stage1(
-        mesh, *arrays, bf, k=config.k,
-        short_k=min(config.short_k, config.k),
-        cov_threshold=config.cov_threshold, num_reads=batch.num_reads,
-        add_to_bloom=need_bloom)
-    if ovf > 0:
-        raise RuntimeError(f"all-to-all bucket overflow ({ovf} k-mers "
-                           f"dropped); increase slack")
-    sharded.release_cache(mesh)
-    return table, bf, seed_fw, has_seed
 
 
 def empty_result(config, log, timer, write_output) -> AssemblyResult:
@@ -683,14 +771,14 @@ def empty_result(config, log, timer, write_output) -> AssemblyResult:
                "num_reads": 0, "solid_nodes": 0})
 
 
-def finish(config, log, timer, batch, write_output, dbg, cov, reach_jun,
-           reach_uni, chars, device, *, solid_nodes, closure_rounds,
-           simplify_drops, mesh=None) -> AssemblyResult:
-    """Stage 4 and the result, shared with the streaming pipeline: the
-    seed-restriction override, the emission packs, the GFA (inside the
-    stage-4 span the caller began), then span ``finish``: the counts, the
-    N50 and the ``stats`` log line (on a mesh, rank 0's, with
-    ``stats['mesh']`` gathered from every rank just before)."""
+def finish(job, write_output, dbg, cov, reach_jun, reach_uni, chars, *,
+           solid_nodes, closure_rounds, simplify_drops) -> AssemblyResult:
+    """Stage 4 and the result: the seed-restriction override, the
+    emission packs, the GFA (inside the stage-4 span the caller began),
+    then span ``finish``: the counts, the N50 and the ``stats`` log line
+    (on a mesh, rank 0's, with ``stats['mesh']`` gathered from every rank
+    just before)."""
+    config, log, timer, batch = job.config, job.log, job.timer, job.batch
     if not config.restrict_to_seeds:
         reach_jun = torch.ones_like(reach_jun)
         reach_uni = torch.ones_like(reach_uni)
@@ -720,9 +808,9 @@ def finish(config, log, timer, batch, write_output, dbg, cov, reach_jun,
              "straight_n50": _n50(straight_lens),
              "closure_rounds": closure_rounds,
              "simplify_drops": simplify_drops,
-             "device": str(device)}
-    if mesh is not None:
-        stats["mesh"] = mesh_stats(mesh, timer)
+             "device": str(job.device)}
+    if job.mesh is not None:
+        stats["mesh"] = mesh_stats(job.mesh, timer)
     timer.end()
     stats.update(elapsed_s=timer.elapsed(), stages=dict(timer.spans),
                  counts=timer.counts(), span_counts=timer.span_counts)

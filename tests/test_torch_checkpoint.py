@@ -38,6 +38,15 @@ def boom(*a, **kw):
     raise AssertionError("a stage re-ran despite its checkpoint")
 
 
+RESUMED_STATS = ("solid_nodes", "graph_nodes", "straights", "junctions",
+                 "straight_n50")
+
+
+def assert_same_stats(resumed, fresh):
+    for f in RESUMED_STATS:
+        assert resumed.stats[f] == fresh.stats[f], f
+
+
 def test_assemble_checkpoint_roundtrip(tmp_path, monkeypatch):
     reads = tiled(53, 1500, 200, 1300, 40)
     cfg = TConfig(k=25, chunk_len=256, log_path=None,
@@ -52,9 +61,11 @@ def test_assemble_checkpoint_roundtrip(tmp_path, monkeypatch):
     # Full resume: stages 1, 2 and 3 do not run.
     monkeypatch.setattr(t_pipeline, "_stage1", boom)
     monkeypatch.setattr(t_pipeline, "run_stage2", boom)
-    monkeypatch.setattr(t_pipeline, "_stage3", boom)
+    monkeypatch.setattr(t_pipeline, "_cover_batch", boom)
+    monkeypatch.setattr(t_pipeline, "reach_chars", boom)
     r2 = t_pipeline.assemble(reads, cfg, write_output=False, device="cpu")
     assert r2.gfa_lines == r1.gfa_lines
+    assert_same_stats(r2, r1)
 
     # Without stage 3: the graph comes from stage 2, coverage runs again.
     monkeypatch.undo()
@@ -63,6 +74,7 @@ def test_assemble_checkpoint_roundtrip(tmp_path, monkeypatch):
     monkeypatch.setattr(t_pipeline, "run_stage2", boom)
     r3 = t_pipeline.assemble(reads, cfg, write_output=False, device="cpu")
     assert r3.gfa_lines == r1.gfa_lines
+    assert_same_stats(r3, r1)
 
     # Another configuration does not reuse the checkpoint.
     monkeypatch.undo()
@@ -88,6 +100,7 @@ def test_streaming_checkpoint_roundtrip(tmp_path, monkeypatch):
     r2 = t_streaming_mod.assemble_streaming(reads, cfg, write_output=False,
                                             slice_chunks=8, device="cpu")
     assert r2.gfa_lines == r1.gfa_lines
+    assert_same_stats(r2, r1)
 
     # Without stage 3: the graph and coverage come again from spass2.
     (digest,) = [d for d in tmp_path.iterdir() if d.is_dir()]
@@ -95,6 +108,7 @@ def test_streaming_checkpoint_roundtrip(tmp_path, monkeypatch):
     r3 = t_streaming_mod.assemble_streaming(reads, cfg, write_output=False,
                                             slice_chunks=16, device="cpu")
     assert r3.gfa_lines == r1.gfa_lines
+    assert_same_stats(r3, r1)
     monkeypatch.undo()
     shot = t_pipeline.assemble(reads, TConfig(k=25, chunk_len=256,
                                               clip_tips=True, log_path=None),
