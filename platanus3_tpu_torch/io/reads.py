@@ -142,15 +142,17 @@ def reads_from_strings(seqs: List[str], k: int, chunk_len: int) -> ReadBatch:
 
 
 def load_reads(path: str, k: int, chunk_len: int,
-               use_native: bool = True) -> ReadBatch:
+               use_native: bool = True, timer=None) -> ReadBatch:
     """Load + pack a read file (FASTA/FASTQ): through the C++ loader, or
     with ``use_native=False`` through the numpy parser.  The two give
-    equal batches; the C++ loader raises rather than falling back."""
+    equal batches; the C++ loader raises rather than falling back.
+    ``timer``, a ``StageTimer`` or None, times the C++ loader's parts."""
     if not use_native:
         return reads_from_strings(parse_reads(path), k, chunk_len)
     _check_extension(path)
     from platanus3_tpu_torch import native
-    return native.load_reads_native(os.fspath(path), k, chunk_len)
+    return native.load_reads_native(os.fspath(path), k, chunk_len,
+                                    timer=timer)
 
 
 def chunk_reads(seqs: List[str], k: int, chunk_len: int) -> ReadBatch:

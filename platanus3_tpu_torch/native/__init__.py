@@ -67,7 +67,8 @@ def get_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.p3_open.restype = ctypes.c_void_p
     lib.p3_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
-    for f in ("p3_num_chunks", "p3_num_reads", "p3_all_bases"):
+    for f in ("p3_num_chunks", "p3_num_reads", "p3_all_bases",
+              "p3_num_direct"):
         getattr(lib, f).restype = ctypes.c_uint64
         getattr(lib, f).argtypes = [ctypes.c_void_p]
     lib.p3_fill.restype = None
@@ -79,49 +80,66 @@ def get_lib() -> ctypes.CDLL:
     return lib
 
 
-def load_reads_native(path: str, k: int, chunk_len: int, threads: int = 8):
+def load_reads_native(path: str, k: int, chunk_len: int, threads: int = 8,
+                      timer=None):
     """Parse and pack a FASTA/FASTQ file; returns the port's
     ``io.reads.ReadBatch``.  Raises ``OSError`` when the parser cannot
-    open the file or finds no record marker at its start."""
-    from platanus3_tpu_torch.io.reads import ReadBatch
+    open the file or finds no record marker at its start.  With a
+    ``StageTimer``, times the map and index as part ``load.parse`` and
+    the arrays and their packing as part ``load.pack``, and notes
+    ``load_direct_reads``: the reads packed straight from the mapped
+    text rather than joined from several lines first."""
+    from platanus3_tpu_torch.utils.profiling import timed_part
 
     lib = get_lib()
-    h = lib.p3_open(os.fsencode(path), k, chunk_len)
+    with timed_part(timer, "load.parse"):
+        h = lib.p3_open(os.fsencode(path), k, chunk_len)
     if not h:
         raise OSError(f"native loader could not read {path!r} (missing, "
                       f"empty, or not starting with '>' or '@')")
     try:
-        c = int(lib.p3_num_chunks(h))
-        num_reads = int(lib.p3_num_reads(h))
-        all_bases = int(lib.p3_all_bases(h))
-        if c == 0:
-            return ReadBatch(
-                packed=np.zeros((1, chunk_len // 16), np.uint32),
-                valid_len=np.zeros(1, np.int32),
-                read_id=np.zeros(1, np.int32),
-                start=np.zeros(1, np.int32),
-                read_len=np.zeros(1, np.int32),
-                prev_base=np.full(1, 4, np.uint8),
-                next_base=np.full(1, 4, np.uint8),
-                chunk_len=chunk_len, k=k, all_bases=all_bases,
-                num_reads=num_reads)
-        packed = np.empty((c, chunk_len // 16), np.uint32)
-        valid_len = np.empty(c, np.int32)
-        read_id = np.empty(c, np.int32)
-        start = np.empty(c, np.int32)
-        read_len = np.empty(c, np.int32)
-        prev_base = np.empty(c, np.uint8)
-        next_base = np.empty(c, np.uint8)
-
-        def ptr(a):
-            return a.ctypes.data_as(ctypes.c_void_p)
-
-        lib.p3_fill(h, ptr(packed), ptr(valid_len), ptr(read_id), ptr(start),
-                    ptr(read_len), ptr(prev_base), ptr(next_base), threads)
-        return ReadBatch(
-            packed=packed, valid_len=valid_len, read_id=read_id, start=start,
-            read_len=read_len, prev_base=prev_base, next_base=next_base,
-            chunk_len=chunk_len, k=k, all_bases=all_bases,
-            num_reads=num_reads)
+        if timer is not None:
+            direct = int(lib.p3_num_direct(h))
+            timer.note("load_direct_reads", lambda: direct)
+        with timed_part(timer, "load.pack"):
+            return _fill(lib, h, k, chunk_len, threads)
     finally:
         lib.p3_close(h)
+
+
+def _fill(lib, h, k, chunk_len, threads):
+    """The ``ReadBatch`` of open handle ``h``: its arrays, filled by
+    ``p3_fill`` on ``threads`` threads."""
+    from platanus3_tpu_torch.io.reads import ReadBatch
+
+    c = int(lib.p3_num_chunks(h))
+    num_reads = int(lib.p3_num_reads(h))
+    all_bases = int(lib.p3_all_bases(h))
+    if c == 0:
+        return ReadBatch(
+            packed=np.zeros((1, chunk_len // 16), np.uint32),
+            valid_len=np.zeros(1, np.int32),
+            read_id=np.zeros(1, np.int32),
+            start=np.zeros(1, np.int32),
+            read_len=np.zeros(1, np.int32),
+            prev_base=np.full(1, 4, np.uint8),
+            next_base=np.full(1, 4, np.uint8),
+            chunk_len=chunk_len, k=k, all_bases=all_bases,
+            num_reads=num_reads)
+    packed = np.empty((c, chunk_len // 16), np.uint32)
+    valid_len = np.empty(c, np.int32)
+    read_id = np.empty(c, np.int32)
+    start = np.empty(c, np.int32)
+    read_len = np.empty(c, np.int32)
+    prev_base = np.empty(c, np.uint8)
+    next_base = np.empty(c, np.uint8)
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    lib.p3_fill(h, ptr(packed), ptr(valid_len), ptr(read_id), ptr(start),
+                ptr(read_len), ptr(prev_base), ptr(next_base), threads)
+    return ReadBatch(
+        packed=packed, valid_len=valid_len, read_id=read_id, start=start,
+        read_len=read_len, prev_base=prev_base, next_base=next_base,
+        chunk_len=chunk_len, k=k, all_bases=all_bases, num_reads=num_reads)

@@ -104,15 +104,18 @@ def check_device(device, what: str) -> torch.device:
     return device
 
 
-def load_batch(source, config: AssemblyConfig) -> reads_mod.ReadBatch:
-    """A ``ReadBatch`` from a path (the native loader), a list of
-    sequences, or a prepared batch."""
+def load_batch(source, config: AssemblyConfig,
+               timer=None) -> reads_mod.ReadBatch:
+    """A ``ReadBatch`` from a path (the native loader, its parts timed
+    by ``timer`` where one is given), a list of sequences, or a prepared
+    batch."""
     if isinstance(source, reads_mod.ReadBatch):
         return source
     if isinstance(source, (list, tuple)):
         return reads_mod.reads_from_strings(list(source), config.k,
                                             config.chunk_len)
-    return reads_mod.load_reads(source, config.k, config.chunk_len)
+    return reads_mod.load_reads(source, config.k, config.chunk_len,
+                                timer=timer)
 
 
 def checkpointer(config: AssemblyConfig, batch, need_bloom: bool,
@@ -568,7 +571,7 @@ def run_job(source, config, log, write_output, extra_solid, device, mesh,
             contextlib.ExitStack() as rank0_alone:
         timer.begin("load")
         log.write("Assemble")
-        batch = load_batch(source, config)
+        batch = load_batch(source, config, timer)
         log.write(f"read file loaded ({batch.num_reads} reads, "
                   f"{batch.all_bases} bases, {batch.num_chunks} chunks)")
         if batch.num_reads == 0:
